@@ -1,0 +1,116 @@
+"""Build and bind the port's CUDA kernels (fpng_tpu_torch/csrc/*.cu).
+
+The sources are compiled by `nvcc` at first use into one shared library
+with a plain C interface, keyed on a hash of the sources and the flags, and
+bound with ctypes.  Nothing here runs at import: `import fpng_tpu_torch`
+needs neither a card nor a CUDA toolchain.
+
+Every C entry point launches on the stream it is given (the caller passes
+`torch.cuda.current_stream().cuda_stream`), allocates nothing, does not
+synchronise, and returns `cudaGetLastError()`; `check` raises on non-zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".build", "fpng_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # desc, tbl, base_bits, B, N, num_words, words, total, last_tok,
+    # block_offsets, stream
+    "fpng_encfuse": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # words, lo, hi, table, B, NW, regs, stream
+    "fpng_crc_words": [_P, _P, _P, _P, _I, _I, _P, _P],
+    # vals, offsets, B, N, num_words, words, stream
+    "fpng_deposit": [_P, _P, _I, _I, _I, _P, _P],
+}
+
+_lib = None
+
+
+def _sources() -> list[str]:
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> str:
+    """Path of the library built from the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in _sources():
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"libfpng_kernels-{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernel library if its hash-keyed .so is missing."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def stream_ptr(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require_cuda(name: str, *tensors) -> None:
+    """Validate kernel inputs: one CUDA device, contiguous, int32."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous() or \
+                t.dtype != torch.int32:
+            raise ValueError(
+                f"{name}: inputs must be contiguous int32 tensors on one "
+                f"CUDA device (got {t.dtype} on {t.device})")

@@ -1,0 +1,247 @@
+"""Batched encoder pipeline (counterpart of fpng_tpu/models/encoder.py).
+
+One pass over a same-shape (B, H, W, C) batch on one device:
+
+    filter -> RLE match resolution (row scans) -> per-unit descriptors ->
+    kernel B1 (code lookup, bit offsets, word deposit) -> adler32 ->
+    kernel B2 (IDAT CRC from the words) -> host memcpy splice
+
+Host work is O(1) per image: container framing and the stored-block
+fallback decision (fpng.cpp:1662-1829).  Outputs are byte-identical to
+fpng_tpu.encode_batch under the same tables.
+
+Ported so far: 24 bpp 1-pass with the device IDAT CRC, and
+FPNG_FORCE_UNCOMPRESSED.  32 bpp 1-pass and 2-pass raise
+NotImplementedError (ROADMAP A9, A10).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from fpng_tpu import constants as C
+
+from ..ops.assemble import idat_crc_words, raw_idat_prefix
+from ..ops.checksum import adler32_bytes
+from ..ops.encfuse import (DESC_EXTRA_N_SHIFT, DESC_EXTRA_VAL_SHIFT,
+                           DESC_TOK_START, DESC_USE_TABLE, _MAX_BASE_BITS,
+                           encode_bits_fused, pack_table)
+from ..ops.filter import filter_deltas
+from ..ops.tokenize import match_fields
+from ..tables import one_pass_state
+
+
+def _len_sym_extra(adj: torch.Tensor):
+    """Deflate length symbol + extra-bit count from adj = length - 3
+    (RFC 1951 3.2.5: symbol groups of 4 double their extra bits)."""
+    l = adj  # 0..255
+    hb = sum((l >= t).to(torch.int32) for t in (2, 4, 8, 16, 32, 64, 128))
+    e = torch.clamp(hb - 2, min=0)
+    base_l = 1 << torch.clamp(e + 2, min=3)  # 8 << (e-1), e >= 1
+    sym = torch.where(e == 0, 257 + l, 261 + 4 * e + ((l - base_l) >> e))
+    sym = torch.where(l == 255, 285, sym)  # length 258: own symbol
+    e = torch.where(l == 255, 0, e)
+    return sym, e
+
+
+def _budget(h: int, w: int, c: int) -> int:
+    """Reference output-buffer budget for the deflate stream."""
+    return ((58 + (w * c + 1) * h + 7) & ~7) - 58
+
+
+def _num_words(budget: int) -> int:
+    """Encode buffer size in words, rounded up to 1024 (one 4096-byte CRC
+    chunk); the round-up is dead zeros."""
+    return -(-max(budget // 4 + 4, 8) // 1024) * 1024
+
+
+def build_desc(imgs, codes, sizes, pend_val, pend_n, *, num_chans: int,
+               cost_check: bool):
+    """Token-assembly prologue: images -> per-unit descriptor stream.
+
+    imgs (B, H, W, C) uint8; codes/sizes (B, 288); pend_val/pend_n (B,).
+    Returns (desc (B, N) int32, tbl (B, 8, 128) int32, deltas, lit_pixel,
+    mstart, len_sym).  The stream order is [pending tail, per row: filter
+    byte + W*C byte units, EOB] (fpng.cpp:1163-1265).
+    """
+    B, H, W, Cc = imgs.shape
+    if Cc != num_chans:
+        raise ValueError(f"images have {Cc} channels, not {num_chans}")
+    if cost_check:
+        raise NotImplementedError(
+            "the 32 bpp 1-pass cost check needs kernel B7 (demote_mask), "
+            "not ported yet (ROADMAP A9)")
+    dev = imgs.device
+    deltas = filter_deltas(imgs)
+    eq, mstart, mlen_px = match_fields(deltas, num_chans)
+    d32 = deltas.to(torch.int32)
+
+    adj = torch.where(mstart, mlen_px * Cc - 3, 0)
+    len_sym, len_extra = _len_sym_extra(adj)  # (B, H, W)
+    tbl = pack_table(codes, sizes)
+    lit_pixel = ~eq
+
+    # per-byte unit descriptors (layout in ops/encfuse.py)
+    k0 = torch.zeros(Cc, dtype=torch.bool, device=dev)
+    k0[0] = True
+    lit_desc = d32 | DESC_USE_TABLE | \
+        torch.where(k0, DESC_TOK_START, 0).to(torch.int32)
+    m_desc = (len_sym | DESC_USE_TABLE | DESC_TOK_START |
+              ((len_extra + 1) << DESC_EXTRA_N_SHIFT) |
+              ((adj & ((1 << len_extra) - 1)) << DESC_EXTRA_VAL_SHIFT))
+    unit_desc = torch.where(
+        lit_pixel[..., None], lit_desc,
+        torch.where(mstart[..., None] & k0, m_desc[..., None], 0))
+
+    # filter-byte units: literal 0 for row 0, 2 for the rest (no tok flag:
+    # the reference's flush rule checks at pixel-token granularity)
+    fvals = torch.where(torch.arange(H, device=dev) > 0, 2, 0)
+    f_desc = (fvals | DESC_USE_TABLE).to(torch.int32).expand(B, H)
+    row_desc = torch.cat(
+        [f_desc[:, :, None], unit_desc.reshape(B, H, W * Cc)], dim=2)
+    pend_desc = ((pend_n.to(torch.int32) << DESC_EXTRA_N_SHIFT) |
+                 (pend_val.to(torch.int32) << DESC_EXTRA_VAL_SHIFT))
+    eob_desc = torch.full((B, 1), 256 | DESC_USE_TABLE, dtype=torch.int32,
+                          device=dev)
+    desc = torch.cat(
+        [pend_desc[:, None], row_desc.reshape(B, -1), eob_desc], dim=1)
+    return desc, tbl, deltas, lit_pixel, mstart, len_sym
+
+
+def encode_kernel(imgs, codes, sizes, base_bits, pend_val, pend_n, *,
+                  num_chans: int, cost_check: bool, num_words: int):
+    """Device encode of a (B, H, W, C) uint8 batch.
+
+    Returns (words (B, num_words) int32, total_bits (B,) int32,
+    last_token_start (B,) int32, adler (B,) int64).
+    """
+    B, H, W, Cc = imgs.shape
+    desc, tbl, deltas, *_ = build_desc(
+        imgs, codes, sizes, pend_val, pend_n, num_chans=num_chans,
+        cost_check=cost_check)
+    words, total_bits, last_tok = encode_bits_fused(
+        desc, tbl, base_bits, num_words)
+
+    # adler32 over the filtered stream (filter bytes included)
+    fvals = torch.where(torch.arange(H, device=imgs.device) > 0, 2, 0)
+    stream_u8 = torch.cat(
+        [fvals.to(torch.uint8)[None, :, None].expand(B, H, 1),
+         deltas.reshape(B, H, W * Cc)], dim=2).reshape(B, -1)
+    return words, total_bits, last_tok, adler32_bytes(stream_u8)
+
+
+# ---------------------------------------------------------------------------
+# Host driver
+# ---------------------------------------------------------------------------
+
+
+def _stored_png(img: np.ndarray) -> bytes:
+    from fpng_tpu.container import build_png
+    from fpng_tpu.golden import write_stored_stream
+
+    h, w, c = img.shape
+    filtered0 = np.zeros((h, 1 + w * c), np.uint8)
+    filtered0[:, 1:] = img.reshape(h, w * c)
+    return build_png(write_stored_stream(filtered0), w, h, c)
+
+
+def _validate(images: np.ndarray):
+    if images.ndim != 4:
+        raise ValueError("encode_batch expects (B, H, W, C) uint8")
+    B, H, W, Cc = images.shape
+    if Cc not in (3, 4):
+        raise ValueError("channels must be 3 or 4")
+    if H < 1 or W < 1 or W * H > 0xFFFFFFFF or \
+            W > C.MAX_SUPPORTED_DIM or H > C.MAX_SUPPORTED_DIM:
+        raise ValueError("unsupported dimensions")
+
+
+def launch_assemble(words, total_bits, adler, prefixes):
+    """Issue the device IDAT-CRC pass (ops/assemble.py); no sync.  Returns
+    the (B,) int64 CRC tensor.  The rest of container assembly is the host
+    memcpy in _finish_batch_devcrc."""
+    dev = words.device
+    plens = torch.tensor([len(p) for p in prefixes], dtype=torch.int64)
+    raw_ip = torch.from_numpy(raw_idat_prefix(prefixes).astype(np.int64))
+    return idat_crc_words(words, total_bits, adler, plens.to(dev),
+                          raw_ip.to(dev))
+
+
+_IEND12 = b"\x00\x00\x00\x00IEND\xaeB`\x82"
+
+
+def _finish_batch_devcrc(images, words, crc, total_bits, last_tok, adler,
+                         prefixes, budget) -> list[bytes]:
+    """Host tail of the device-CRC assembly: per-image memcpy splice of
+    hdr58 + prefix + payload words + adler + crc + IEND, with the stored
+    fallback where the budget rule fired (fpng.cpp:1728-1758)."""
+    from fpng_tpu.container import build_header
+
+    B, H, W, Cc = images.shape
+    words = words.cpu().numpy()
+    crc = crc.cpu().numpy()
+    total_bits = total_bits.cpu().numpy()
+    last_tok = last_tok.cpu().numpy().astype(np.int64)
+    adler = adler.cpu().numpy()
+    tb = (total_bits.astype(np.int64) + 7) >> 3
+    plens = np.array([len(p) for p in prefixes], np.int64)
+    fail = ((last_tok >= 0) & ((last_tok >> 3) + 8 > budget)) | \
+        (tb + 4 > budget) | (plens > budget)
+    hdr50 = build_header(0, W, H, Cc)[:50]
+    wb = words.view(np.uint8)  # (B, NW*4) little-endian payload bytes
+    out = []
+    for b in range(B):
+        if fail[b]:
+            out.append(_stored_png(images[b]))
+            continue
+        t = int(tb[b])
+        p = prefixes[b]
+        out.append(b"".join((
+            hdr50, (t + 4).to_bytes(4, "big"), b"IDAT", p,
+            wb[b, len(p):t].tobytes(),
+            int(adler[b]).to_bytes(4, "big"),
+            int(crc[b]).to_bytes(4, "big"), _IEND12)))
+    return out
+
+
+def encode_batch(images, flags: int = 0, device="cuda") -> list[bytes]:
+    """Encode a (B, H, W, C) uint8 batch into PNG byte strings on
+    `device`."""
+    images = np.ascontiguousarray(images, dtype=np.uint8)
+    return encode_batch_device_input(None, images, flags, device)
+
+
+def encode_batch_device_input(dev_imgs, images: np.ndarray, flags: int = 0,
+                              device="cuda") -> list[bytes]:
+    """encode_batch over images already on the device (`dev_imgs`, or None
+    to copy `images` to `device`).  `images` is the matching host copy,
+    used for the stored-block fallback."""
+    _validate(images)
+    B, H, W, Cc = images.shape
+    if flags & C.FPNG_FORCE_UNCOMPRESSED:
+        return [_stored_png(images[b]) for b in range(B)]
+    if flags & C.FPNG_ENCODE_SLOWER:
+        raise NotImplementedError(
+            "2-pass encode (FPNG_ENCODE_SLOWER) is not ported yet "
+            "(ROADMAP A10)")
+    if dev_imgs is None:
+        dev_imgs = torch.from_numpy(images).to(device)
+    dev = dev_imgs.device
+
+    budget = _budget(H, W, Cc)
+    st = one_pass_state(Cc, dev)
+    prefixes = [st.prefix] * B
+    # desc-field invariant (ops/encfuse.py layout): the pending tail
+    # carries <= 7 bits
+    assert st.nacc <= 7 and st.acc < (1 << 13)
+    assert len(st.prefix) * 8 < _MAX_BASE_BITS
+    words, total_bits, last_tok, adler = encode_kernel(
+        dev_imgs, st.codes.expand(B, -1), st.sizes.expand(B, -1),
+        torch.full((B,), len(st.prefix) * 8, dtype=torch.int32, device=dev),
+        torch.full((B,), st.acc, dtype=torch.int32, device=dev),
+        torch.full((B,), st.nacc, dtype=torch.int32, device=dev),
+        num_chans=Cc, cost_check=(Cc == 4), num_words=_num_words(budget))
+    crc = launch_assemble(words, total_bits, adler, prefixes)
+    return _finish_batch_devcrc(images, words, crc, total_bits, last_tok,
+                                adler, prefixes, budget)

@@ -1,0 +1,360 @@
+"""Checksums as parallel reductions (counterpart of fpng_tpu/ops/checksum.py).
+
+Adler-32: the (A, B) update is affine, so the checksum decomposes into
+per-chunk (sum, weighted sum) pairs combined with modular arithmetic.
+
+CRC-32: the init-0 ("raw") register is GF(2)-linear in the message, so it is
+the XOR of per-(position, bit) contributions; chunk registers combine in a
+log-depth tree with x^(8*L*2^t) mod P shift matrices.  The matrices and
+tables are host numpy/Python (copied from the JAX package, which keeps them
+in modules that import jax); their application is torch ops on int64
+registers masked to 32 bits.  crc32_words_masked_raw wraps kernel B2
+(csrc/crc_words.cu).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .. import kernels as K
+from .bitpack import from_word32
+
+ADLER_MOD = 65521
+_ADLER_CHUNK = 1024
+
+
+def adler32_bytes(data: torch.Tensor) -> torch.Tensor:
+    """Adler-32 of each row of a (B, N) uint8 tensor -> (B,) int64."""
+    B, N = data.shape
+    L = _ADLER_CHUNK
+    dev = data.device
+    d = torch.nn.functional.pad(data.to(torch.int64), (0, (-N) % L))
+    Kc = d.shape[1] // L
+    d = d.reshape(B, Kc, L)
+    w = torch.arange(L, 0, -1, dtype=torch.int64, device=dev)  # weights L..1
+    s1 = d.sum(dim=2)
+    s2 = (d * w).sum(dim=2)
+    # true chunk lengths: the zero padding of a short final chunk adds
+    # nothing to s1, but s2 weighted it L-j instead of len-j
+    lens = torch.clamp(N - torch.arange(Kc, dtype=torch.int64, device=dev) * L,
+                       0, L)
+    s1m = s1 % ADLER_MOD
+    s2c = (s2 - (L - lens) * s1) % ADLER_MOD
+    a_before = (1 + torch.cumsum(s1m, dim=1) - s1m) % ADLER_MOD
+    terms = ((lens % ADLER_MOD) * a_before + s2c) % ADLER_MOD
+    b_fin = terms.sum(dim=1) % ADLER_MOD
+    a_fin = (1 + s1m.sum(dim=1)) % ADLER_MOD
+    return (b_fin << 16) | a_fin
+
+
+# ---------------------------------------------------------------------------
+# CRC-32 (PNG polynomial, reflected algorithm): host-side GF(2) tables
+# ---------------------------------------------------------------------------
+
+_CRC_POLY = 0xEDB88320
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_table() -> tuple:
+    t = np.zeros(256, np.uint32)
+    for b in range(256):
+        c = b
+        for _ in range(8):
+            c = (c >> 1) ^ (_CRC_POLY if c & 1 else 0)
+        t[b] = c
+    return tuple(int(x) for x in t)
+
+
+def _advance_byte(vals: np.ndarray) -> np.ndarray:
+    """Advance raw CRC registers through one zero byte."""
+    t = np.asarray(_byte_table(), np.uint32)
+    return (vals >> np.uint32(8)) ^ t[vals & np.uint32(0xFF)]
+
+
+@functools.lru_cache(maxsize=None)
+def _shift1_matrix() -> tuple:
+    """Shift-by-one-byte GF(2) matrix as 32 uint32 basis images."""
+    basis = np.array([np.uint32(1) << b for b in range(32)], np.uint32)
+    return tuple(int(x) for x in _advance_byte(basis))
+
+
+def _gf2_compose(m2: tuple, m1: tuple) -> tuple:
+    """(m2 after m1) as basis images: out[b] = m2(m1[b])."""
+    out = []
+    for b in range(32):
+        v = m1[b]
+        acc = 0
+        for k in range(32):
+            if (v >> k) & 1:
+                acc ^= m2[k]
+        out.append(acc)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_pow2_matrix(t: int) -> tuple:
+    """Matrix advancing a CRC register through 2^t zero bytes."""
+    if t == 0:
+        return _shift1_matrix()
+    m = _shift_pow2_matrix(t - 1)
+    return _gf2_compose(m, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_matrix(nbytes: int) -> tuple:
+    """Matrix advancing a CRC register through `nbytes` zero bytes."""
+    m = tuple(1 << b for b in range(32))  # identity
+    t = 0
+    while nbytes:
+        if nbytes & 1:
+            m = _gf2_compose(_shift_pow2_matrix(t), m)
+        nbytes >>= 1
+        t += 1
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_shift1_matrix() -> tuple:
+    """GF(2) inverse of the shift-by-one-byte matrix (basis images)."""
+    fwd = _shift1_matrix()
+    # Gauss-Jordan over GF(2); rows[r] bit b = (fwd[b] >> r) & 1
+    rows = []
+    for r in range(32):
+        v = 0
+        for b in range(32):
+            v |= ((fwd[b] >> r) & 1) << b
+        rows.append(v)
+    eye = [1 << r for r in range(32)]
+    for col in range(32):
+        piv = next(r for r in range(col, 32) if (rows[r] >> col) & 1)
+        rows[col], rows[piv] = rows[piv], rows[col]
+        eye[col], eye[piv] = eye[piv], eye[col]
+        for r in range(32):
+            if r != col and (rows[r] >> col) & 1:
+                rows[r] ^= rows[col]
+                eye[r] ^= eye[col]
+    # eye holds M^{-1} in row form: bit b of eye[r] = M^{-1}[r, b]
+    out = []
+    for b in range(32):
+        v = 0
+        for r in range(32):
+            v |= ((eye[r] >> b) & 1) << r
+        out.append(v)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_shift_pow2_matrix(t: int) -> tuple:
+    """Matrix reversing a CRC register through 2^t zero bytes."""
+    if t == 0:
+        return _inv_shift1_matrix()
+    m = _inv_shift_pow2_matrix(t - 1)
+    return _gf2_compose(m, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _position_bit_table(chunk: int) -> np.ndarray:
+    """(chunk, 8) uint32: contribution of bit k of byte j to the raw CRC
+    register of a `chunk`-byte block."""
+    t = np.asarray(_byte_table(), np.uint32)
+    bit = np.zeros((chunk, 8), np.uint32)
+    cur = t[np.uint32(1) << np.arange(8)]  # final byte's bit contributions
+    for j in range(chunk - 1, -1, -1):
+        bit[j] = cur
+        cur = _advance_byte(cur)
+    return bit
+
+
+_WCRC_CW = 1024  # words per chunk register (4096 bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _word_bit_table() -> np.ndarray:
+    """(32, 1024) uint32: contribution of bit k of LE word j to the raw CRC
+    register of a 4096-byte chunk."""
+    byte_tab = np.array(_position_bit_table(_WCRC_CW * 4), np.uint32)
+    j = np.arange(_WCRC_CW)
+    out = np.zeros((32, _WCRC_CW), np.uint32)
+    for k in range(32):
+        out[k] = byte_tab[4 * j + k // 8, k % 8]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bit_table_4() -> np.ndarray:
+    """(32,) uint32: contribution of bit k of an LE word to the raw CRC of
+    its own 4 bytes as a standalone message."""
+    t = np.array(_position_bit_table(4), np.uint32)  # (4, 8)
+    return np.array([t[k // 8, k % 8] for k in range(32)], np.uint32)
+
+
+def crc32_raw_prefix_host(msgs: list[bytes]) -> np.ndarray:
+    """Host-side raw (init-0) CRC registers of short per-image messages,
+    vectorized over the batch with the byte table."""
+    t = np.asarray(_byte_table(), np.uint32)
+    B = len(msgs)
+    n = max((len(m) for m in msgs), default=0)
+    buf = np.zeros((B, n), np.uint8)
+    lens = np.zeros(B, np.int64)
+    for b, m in enumerate(msgs):
+        buf[b, :len(m)] = np.frombuffer(m, np.uint8)
+        lens[b] = len(m)
+    r = np.zeros(B, np.uint32)
+    for j in range(n):
+        step = (r >> np.uint32(8)) ^ t[(r ^ buf[:, j]) & np.uint32(0xFF)]
+        r = np.where(j < lens, step, r)
+    return r
+
+
+# ---------------------------------------------------------------------------
+# GF(2) register math in torch (int64 registers holding uint32 values)
+# ---------------------------------------------------------------------------
+
+
+def _xor_reduce_last(x: torch.Tensor) -> torch.Tensor:
+    """XOR over the last axis (a power of two long)."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] ^ x[..., h:]
+    return x[..., 0]
+
+
+def _apply_rows(crc: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Apply a GF(2) matrix given as (..., 32) basis images to registers."""
+    bits = (crc.unsqueeze(-1) >> torch.arange(32, device=crc.device)) & 1
+    return _xor_reduce_last(bits * rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_on(rows: tuple, device: torch.device) -> torch.Tensor:
+    """A host GF(2) matrix (32 basis images) as an int64 tensor on device,
+    uploaded once per device."""
+    return torch.tensor(rows, dtype=torch.int64).to(device)
+
+
+def _apply_shift_device(crc: torch.Tensor, rows: tuple) -> torch.Tensor:
+    """Apply one host GF(2) matrix (32 basis images) to (B,) registers."""
+    return _apply_rows(crc, _rows_on(rows, crc.device))
+
+
+def _var_shift(raw, k, max_k, matrix):
+    k = torch.clamp(k.to(torch.int64), min=0)
+    for t in range(max(int(max_k).bit_length(), 1)):
+        shifted = _apply_shift_device(raw, matrix(t))
+        raw = torch.where(((k >> t) & 1) == 1, shifted, raw)
+    return raw
+
+
+def crc32_var_unshift(raw: torch.Tensor, k: torch.Tensor,
+                      max_k: int) -> torch.Tensor:
+    """Reverse each raw register through k[b] (< max_k) zero bytes."""
+    return _var_shift(raw, k, max_k, _inv_shift_pow2_matrix)
+
+
+def crc32_var_shift(raw: torch.Tensor, k: torch.Tensor,
+                    max_k: int) -> torch.Tensor:
+    """Advance each raw register through k[b] (<= max_k) zero bytes."""
+    return _var_shift(raw, k, max_k, _shift_pow2_matrix)
+
+
+def crc32_raw4_le(word: torch.Tensor) -> torch.Tensor:
+    """Raw (init-0) CRC register of the 4 bytes of each LE uint32."""
+    return _apply_shift_device(word, tuple(int(x) for x in _bit_table_4()))
+
+
+# ---------------------------------------------------------------------------
+# Word-domain raw CRC (device container assembly)
+# ---------------------------------------------------------------------------
+
+
+def _ones_below(c: torch.Tensor) -> torch.Tensor:
+    """Mask of the low 8*c bits, c in [0, 4] (int64)."""
+    m = (torch.ones_like(c) << (8 * torch.clamp(c, max=3))) - 1
+    return torch.where(c >= 4, 0xFFFFFFFF, m)
+
+
+@functools.lru_cache(maxsize=None)
+def _word_table_on(device: torch.device) -> torch.Tensor:
+    """_word_bit_table() as (32, 1024) int32 bit patterns on device,
+    uploaded once per device (128 KB)."""
+    return torch.from_numpy(_word_bit_table().view(np.int32)).to(device)
+
+
+def crc_chunks_plain(words: torch.Tensor, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel B2: (B, NW) int32 words -> (B, NW/1024)
+    int64 raw chunk registers, bytes outside [lo, hi) read as zero."""
+    B, NW = words.shape
+    Kc = NW // _WCRC_CW
+    dev = words.device
+    w = from_word32(words).reshape(B, Kc, _WCRC_CW)
+    p = 4 * torch.arange(NW, dtype=torch.int64, device=dev).reshape(
+        1, Kc, _WCRC_CW)
+    lo = lo.to(torch.int64)[:, None, None]
+    hi = hi.to(torch.int64)[:, None, None]
+    mask = (~_ones_below(torch.clamp(lo - p, 0, 4)) & 0xFFFFFFFF) & \
+        _ones_below(torch.clamp(hi - p, 0, 4))
+    wm = w & mask
+    tab = _word_table_on(dev).to(torch.int64) & 0xFFFFFFFF
+    acc = torch.zeros_like(wm)
+    for k in range(32):
+        acc ^= ((wm >> k) & 1) * tab[k]
+    return _xor_reduce_last(acc)
+
+
+def crc_chunks(words: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor) -> torch.Tensor:
+    """Raw register of each 1024-word chunk: the wrapper of kernel B2.
+
+    A CPU tensor takes crc_chunks_plain; a CUDA tensor launches the kernel
+    or raises.  Returns (B, NW/1024) int64.
+    """
+    B, NW = words.shape
+    if NW % _WCRC_CW:
+        raise ValueError(f"word count {NW} is not a multiple of {_WCRC_CW}")
+    if words.device.type == "cpu":
+        return crc_chunks_plain(words, lo, hi)
+    lo = lo.to(torch.int32).contiguous()
+    hi = hi.to(torch.int32).contiguous()
+    table = _word_table_on(words.device)
+    K.require_cuda("crc32_words_masked_raw", words, lo, hi, table)
+    regs = torch.empty((B, NW // _WCRC_CW), dtype=torch.int32,
+                       device=words.device)
+    K.check(K.lib().fpng_crc_words(
+        words.data_ptr(), lo.data_ptr(), hi.data_ptr(), table.data_ptr(),
+        B, NW, regs.data_ptr(), K.stream_ptr(words.device)),
+        "fpng_crc_words")
+    crc_chunks.launches += 1
+    return from_word32(regs)
+
+
+crc_chunks.launches = 0
+
+
+def combine_chunks(acc: torch.Tensor) -> torch.Tensor:
+    """Fold (B, K) raw 4096-byte chunk registers into one per row with a
+    log-depth shift-combine tree (odd levels get a raw-neutral zero
+    segment prepended)."""
+    B, Kc = acc.shape
+    span = _WCRC_CW * 4  # bytes represented by each register
+    while Kc > 1:
+        if Kc % 2:
+            acc = torch.cat([torch.zeros_like(acc[:, :1]), acc], dim=1)
+            Kc += 1
+        left, right = acc[:, 0::2], acc[:, 1::2]
+        acc = _apply_shift_device(left, _shift_matrix(span)) ^ right
+        span *= 2
+        Kc //= 2
+    return acc[:, 0]
+
+
+def crc32_words_masked_raw(words: torch.Tensor, lo: torch.Tensor,
+                           hi: torch.Tensor) -> torch.Tensor:
+    """Init-0 CRC register of each row of a (B, NW) int32 LE word buffer
+    with bytes outside [lo[b], hi[b]) treated as zero.  NW must be a
+    multiple of 1024; the result (B,) int64 is the raw register of the
+    full 4*NW-byte masked message."""
+    return combine_chunks(crc_chunks(words, lo, hi))

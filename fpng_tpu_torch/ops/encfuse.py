@@ -1,0 +1,118 @@
+"""Fused encoder deposit: desc -> (table lookup, bit offsets, deposit)
+(counterpart of fpng_tpu/ops/encfuse.py).
+
+One packed descriptor per unit of the token stream, plus the image's
+288-entry code table packed as code | size << 16:
+
+  desc bits:  0-8   sym        table index (literal byte / len sym / 0|2
+                               filter / 256 EOB)
+              9     use_table  0 => raw unit (header pending-tail bits)
+              10-12 extra_n    trailing bit count (len-extra + 1-bit dist
+                               code for matches; pending nacc for raw)
+              13-25 extra_val  trailing bit value
+              26    tok_start  reference flush-rule token starts
+
+encode_bits_fused wraps kernel B1 (csrc/encfuse.cu); encode_bits_plain is
+its plain version, the materialize -> offsets -> scatter chain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import kernels as K
+from .bitpack import MASK32, exclusive_offsets, scatter_bits
+
+DESC_SYM_BITS = 9
+DESC_USE_TABLE = 1 << 9
+DESC_EXTRA_N_SHIFT = 10
+DESC_EXTRA_VAL_SHIFT = 13
+DESC_TOK_START = 1 << 26
+
+_TILE = 2048  # units per block of the kernel (kTile in csrc/common.cuh)
+_MAX_UNIT_BITS = 18  # a match unit: 12-bit code + 5 extra + 1 distance bit
+_MAX_BASE_BITS = 1 << 16  # base_bits bound: a header prefix is < 640 bytes
+
+
+def pack_table(codes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """(B, 288) codes/sizes -> (B, 8, 128) int32 code | size << 16 tiles."""
+    B = codes.shape[0]
+    packed = codes.to(torch.int64) | (sizes.to(torch.int64) << 16)
+    out = torch.zeros((B, 1024), dtype=torch.int32, device=codes.device)
+    out[:, :packed.shape[1]] = packed.to(torch.int32)
+    return out.reshape(B, 8, 128)
+
+
+def materialize_units(desc: torch.Tensor, codes: torch.Tensor,
+                      sizes: torch.Tensor):
+    """Per-unit decode of the desc stream.
+
+    desc (B, N) int32; codes/sizes (B, S) code table.  Returns (vals int64
+    holding uint32 values, nbits int64, tok_start bool), each (B, N).
+    """
+    d = desc.to(torch.int64)
+    sym = d & 511
+    use_t = ((d >> 9) & 1) == 1
+    en = (d >> DESC_EXTRA_N_SHIFT) & 7
+    ev = (d >> DESC_EXTRA_VAL_SHIFT) & 0x1FFF
+    ts = ((d >> 26) & 1) == 1
+    code = torch.gather(codes.to(torch.int64), 1, sym)
+    sz = torch.gather(sizes.to(torch.int64), 1, sym)
+    sz = torch.where(use_t, sz, 0)
+    code = torch.where(use_t, code, 0)
+    vals = (code | (ev << sz)) & MASK32
+    return vals, sz + en, ts
+
+
+def encode_bits_plain(desc: torch.Tensor, tbl: torch.Tensor,
+                      base_bits: torch.Tensor, num_words: int):
+    """Plain version of kernel B1: materialize_units + exclusive_offsets +
+    scatter_bits.  Returns (words (B, num_words) int32, total_bits (B,)
+    int32, last_tok (B,) int32)."""
+    B = desc.shape[0]
+    t = tbl.reshape(B, -1).to(torch.int64)
+    vals, nbits, ts = materialize_units(desc, t & 0xFFFF, t >> 16)
+    offsets = exclusive_offsets(nbits, base_bits)
+    words = scatter_bits(vals, nbits, offsets, num_words)
+    total = offsets[:, -1] + nbits[:, -1]
+    last_tok = torch.where(ts, offsets, -1).max(dim=1).values
+    return words, total.to(torch.int32), last_tok.to(torch.int32)
+
+
+def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
+                      base_bits: torch.Tensor, num_words: int):
+    """Lookup + offsets + deposit over a (B, N) desc stream: the wrapper of
+    kernel B1.
+
+    tbl: (B, 8, 128) int32 from pack_table; base_bits: (B,) int32 start
+    offsets (serialized prefix bits, below 2^16).  Returns (words
+    (B, num_words) int32 uint32 patterns, total_bits (B,) int32, last_tok
+    (B,) int32).  Every
+    word equals encode_bits_plain's.  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel or raises.
+    """
+    if desc.device.type == "cpu":
+        return encode_bits_plain(desc, tbl, base_bits, num_words)
+    B, N = desc.shape
+    tbl = tbl.reshape(B, 1024)
+    K.require_cuda("encode_bits_fused", desc, tbl, base_bits)
+    if base_bits.shape != (B,):
+        raise ValueError("encode_bits_fused: base_bits must be (B,)")
+    if _MAX_BASE_BITS + _MAX_UNIT_BITS * N >= 1 << 31 or \
+            num_words >= 1 << 31:
+        raise ValueError("encode_bits_fused: bit offsets past int32")
+    dev = desc.device
+    nblk = -(-N // _TILE)
+    words = torch.zeros((B, num_words), dtype=torch.int32, device=dev)
+    total = torch.empty(B, dtype=torch.int32, device=dev)
+    last_tok = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    block_offs = torch.empty((B, nblk), dtype=torch.int32, device=dev)
+    K.check(K.lib().fpng_encfuse(
+        desc.data_ptr(), tbl.data_ptr(), base_bits.data_ptr(), B, N,
+        num_words, words.data_ptr(), total.data_ptr(), last_tok.data_ptr(),
+        block_offs.data_ptr(), K.stream_ptr(dev)), "fpng_encfuse")
+    encode_bits_fused.launches += 1
+    return words, total, last_tok
+
+
+encode_bits_fused.launches = 0
