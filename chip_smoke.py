@@ -4,16 +4,28 @@
     python3 chip_smoke.py
 
 Run from the root of the repository on a machine with a CUDA card.  It
-builds the port's CUDA kernels from fpng_tpu_torch/csrc, holds each kernel
-bit-exact against its plain torch version at the main path's shapes, drives
-encode_batch / decode_batch (and the single-image entry points) at the
-benchmark's sizes (128 x 256 x 256 x 3 and 2 x 2160 x 3840 x 3), checks
-every file with zlib and with fpng_tpu.golden, decodes corrupted streams
-against golden's statuses, and shows through the launch counters that the
-main path ran every kernel.  One line of numbers per phase; then the card,
-the per-kernel JSON line, and last {"ok": true, "device": {...}}.  Any
-failed check raises and exits non-zero without the ok line.  It imports no
-JAX.
+builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
+
+  3. holds each kernel bit-exact against its plain torch version at the
+     main path's shapes (B1, B2 and B10 on the encoder's and the chunked
+     decode's shapes; B3-B6 on the decode of the headline corpus's own
+     streams), with CUDA-event times and a bytes/operations bound;
+  4. drives encode_batch / decode_batch (and the single-image entry
+     points) at the headline size, 128 x 256 x 256 x 3: the decode takes
+     the walk8 path, every file is checked with zlib and the port's
+     golden, three decodes with the decoder's stage spans on give the
+     stage split, and one profiled decode gives the device's idle share;
+  5. does the same at 2 x 2160 x 3840 x 3;
+  6. drives the chunked decode (FPNG_TPU_WALK8=0) at reduced depth (32
+     images), and one stream that overflows walk8 through walk8 ->
+     chunked -> host;
+  7. decodes corrupted streams against golden's statuses.
+
+The launch counters are set to 0 just before each path and read just
+after, to show that the path went through its kernels.  One line of
+numbers per phase; then the card, the per-kernel JSON line, and last
+{"ok": true, "device": {...}}.  Any failed check raises and exits non-zero
+without the ok line.  It imports no JAX and nothing of fpng_tpu.
 """
 
 import json
@@ -27,6 +39,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the float32 rate
+# outside the tensor cores, taken as the peak of the kernels' 32-bit
+# integer and logic operations (their own rate is not published higher)
+HBM_BYTES_S = 3.35e12
+OPS_S = 67e12
 KERNELS = [  # name, source, the TPU kernel it replaces
     ("encode_bits_fused", "fpng_tpu_torch/csrc/encfuse.cu",
      "fpng_tpu/ops/encfuse.py:188"),
@@ -34,6 +51,14 @@ KERNELS = [  # name, source, the TPU kernel it replaces
      "fpng_tpu/ops/checksum.py:376"),
     ("deposit_bits", "fpng_tpu_torch/csrc/deposit.cu",
      "fpng_tpu/ops/bitpack.py:397"),
+    ("walk_fix8", "fpng_tpu_torch/csrc/walk8.cu",
+     "fpng_tpu/ops/walk8.py:270"),
+    ("finalize_records8", "fpng_tpu_torch/csrc/finalize8.cu",
+     "fpng_tpu/ops/walk8.py:537"),
+    ("scatter_packed16", "fpng_tpu_torch/csrc/deposit.cu",
+     "fpng_tpu/ops/bitpack.py:466"),
+    ("expand", "fpng_tpu_torch/csrc/expand.cu",
+     "fpng_tpu/ops/specdec_tpu.py:866"),
 ]
 
 
@@ -60,6 +85,13 @@ def cuda_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over the peak 32-bit rate."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def card_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -69,7 +101,7 @@ def card_line():
 
 def corpus(B=128, size=256):
     """bench.py's corpus without example.png: synthetic tiles, repeated."""
-    from fpng_tpu.train import synthetic_corpus
+    from fpng_tpu_torch.train import synthetic_corpus
 
     tiles = [np.ascontiguousarray(t[:size, :size])
              for t in synthetic_corpus(3, size=size)]
@@ -112,17 +144,22 @@ def is_stored(png):
 
 def phase_kernels(torch, imgs):
     """Each kernel against its plain version at the main path's shapes."""
+    import fpng_tpu_torch as T
+    from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
     from fpng_tpu_torch.models.encoder import _budget, _num_words, build_desc
+    from fpng_tpu_torch.ops import walk8 as W
     from fpng_tpu_torch.ops.bitpack import (deposit_bits, from_word32,
-                                            scatter_bits)
+                                            scatter_bits, scatter_packed16,
+                                            scatter_packed16_plain)
     from fpng_tpu_torch.ops.checksum import crc_chunks, crc_chunks_plain
     from fpng_tpu_torch.ops.encfuse import (encode_bits_fused,
                                             encode_bits_plain)
+    from fpng_tpu_torch.ops.expand import expand, expand_plain
     from fpng_tpu_torch.ops.specdec import plan_chunks
     from fpng_tpu_torch.tables import one_pass_state
 
     dev = torch.device(DEV)
-    B, H, W, Cc = imgs.shape
+    B, H, W_, Cc = imgs.shape
     st = one_pass_state(Cc, dev)
     desc, tbl, *_ = build_desc(
         torch.from_numpy(imgs).to(dev), st.codes.expand(B, -1),
@@ -132,24 +169,31 @@ def phase_kernels(torch, imgs):
         num_chans=Cc, cost_check=False)
     base = torch.full((B,), len(st.prefix) * 8, dtype=torch.int32,
                       device=dev)
-    budget = _budget(H, W, Cc)
+    budget = _budget(H, W_, Cc)
     nw = _num_words(budget)
     res = {}
 
     def err(a, b):
         return int((from_word32(a) - from_word32(b)).abs().max())
 
+    def masked_err(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
     # B1 against the XLA-path chain, on every word
     got = encode_bits_fused(desc, tbl, base, nw)
     want = encode_bits_plain(desc, tbl, base, nw)
     for g, w_, what in zip(got, want, ("words", "total_bits", "last_tok")):
         check(torch.equal(g, w_), f"B1 {what} differ from the plain chain")
+    N = desc.shape[1]
     res["encode_bits_fused"] = dict(
         max_abs_err=err(got[0], want[0]),
         ms=cuda_ms(torch, lambda: encode_bits_fused(desc, tbl, base, nw), 20),
         plain_ms=cuda_ms(torch, lambda: encode_bits_plain(
             desc, tbl, base, nw), 5),
-        shape=[B, desc.shape[1]], num_words=nw)
+        # desc read, table read, words written; ~20 ops a unit (lookup,
+        # scan, shifts, deposit)
+        bound=bound(4 * B * N + 4 * tbl.numel() + 4 * B * nw, 20 * B * N),
+        shape=[B, N], num_words=nw)
 
     # B2 on the corpus words, masked to each image's payload
     words, total, _ = got
@@ -163,17 +207,20 @@ def phase_kernels(torch, imgs):
         max_abs_err=int((g2 - w2).abs().max()),
         ms=cuda_ms(torch, lambda: crc_chunks(words, lo, hi), 20),
         plain_ms=cuda_ms(torch, lambda: crc_chunks_plain(words, lo, hi), 5),
+        # words read, registers written; ~3 ops a byte (table lookup, xor,
+        # shift)
+        bound=bound(4 * B * nw + 4 * B * K, 12 * B * nw),
         shape=[B, nw], chunks=K, odd_chunks=bool(K % 2))
     check(K % 2 == 1, "the corpus word buffer has an odd chunk count")
 
-    # B10 on decode-style records at the decode's shape for this corpus:
-    # sorted 16-bit slots, distinct literal slots, zero-width gaps
+    # B10 on decode-style records at the chunked decode's shape for this
+    # corpus: sorted 16-bit slots, distinct literal slots, zero-width gaps
     tb = hi.cpu().numpy() + 4 + 16  # zlib stream + adler, CRC + IEND
     nb = 64
     while nb < int(tb.max()):
         nb *= 2
     _, NC, ST = plan_chunks(nb)
-    total_slots = H * (1 + W * Cc)
+    total_slots = H * (1 + W_ * Cc)
     n = NC * ST
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -195,10 +242,166 @@ def phase_kernels(torch, imgs):
                    20),
         plain_ms=cuda_ms(torch, lambda: scatter_bits(
             vals, nbits, offs, dep_words), 5),
+        # vals + offsets read, words written; ~10 ops a unit
+        bound=bound(8 * B * n + 4 * B * dep_words, 10 * B * n),
         shape=[B, n], num_words=dep_words)
+
+    # B3-B6 on the walk8 decode of the corpus's own dynamic-block streams
+    pngs = T.encode_batch(imgs, device=DEV)
+    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
+    stream, luts, p0, zl = pack_streams(metas)
+    Bd = len(metas)
+    st_d = torch.from_numpy(stream).to(dev)
+    lut32 = torch.from_numpy(luts.astype(np.int32)).to(dev)
+    p0_d = torch.from_numpy(p0).to(dev)
+    zl_d = torch.from_numpy(zl).to(dev)
+    nc = W.n_chunks(int(zl.max()))
+    words8 = W.stream_words(st_d)
+    p0_32, zl8_32 = p0_d.to(torch.int32), (zl_d * 8).to(torch.int32)
+
+    def walk():
+        return W.walk_fix8(words8, lut32, p0_32, zl8_32, n_chunks=nc)
+
+    def walk_plain():
+        return W.walk_fix8_plain(words8, lut32, p0_32, zl8_32, n_chunks=nc)
+
+    g4, w4 = walk(), walk_plain()
+    check(g4[6] == w4[6], f"B3 passes {g4[6]} != plain {w4[6]}")
+    for a, b, what in zip(g4[:3], w4[:3], ("e_fin", "nst", "ovf")):
+        check(torch.equal(a, b), f"B3 {what} differs from plain")
+    rows = torch.arange(g4[3].shape[1], device=dev)[None, :, None] < \
+        w4[1][:, None]
+    e3 = 0
+    for a, b, what in zip(g4[3:6], w4[3:6], ("posr", "raw0", "raw1")):
+        a, b = torch.where(rows, a, 0), torch.where(rows, b, 0)
+        check(torch.equal(a, b), f"B3 {what} records differ from plain")
+        e3 = max(e3, masked_err(a, b))
+    check(not bool(g4[2].any()), "the headline corpus overflows walk8")
+    steps_sum = int(g4[1].sum())
+    res["walk_fix8"] = dict(
+        max_abs_err=max(e3, masked_err(g4[0], w4[0])),
+        ms=cuda_ms(torch, walk, 5), plain_ms=cuda_ms(torch, walk_plain, 1),
+        # stream words and LUTs read, 12 record bytes a recorded step and
+        # 16 bytes a lane written; ~30 ops a step
+        bound=bound(4 * words8.numel() + 4 * lut32.numel() +
+                    12 * steps_sum + 16 * Bd * nc, 30 * steps_sum),
+        shape=[Bd, nc], step_rows=int(g4[3].shape[1]),
+        passes=g4[6], recorded_steps=steps_sum)
+
+    records, e_fin, out0, steps, ovf, _ = W.decode_walk8(
+        st_d, lut32, p0_d, zl_d, n_chunks=nc)
+    check(not bool(ovf.any()), "walk8 overflow on the headline corpus")
+    k8 = W.trim_steps(int(steps), records[0].shape[1])
+    kw = dict(k8=k8, h=H, bpl=W_ * Cc, c=Cc)
+    fin_args = (*records, e_fin, out0)
+    g5 = W.finalize_records8(*fin_args, **kw)
+    w5 = W.finalize_records8_plain(*fin_args, **kw)
+    for a, b, what in zip(g5, w5, ("meta", "metb", "chk")):
+        check(torch.equal(a, b), f"B4 {what} differs from plain")
+    # rows B4 must read: the recorded steps among its first k8 rows
+    read_rows = int(torch.clamp(records[3], max=k8).sum())
+    out_rows = Bd * k8 * nc
+    res["finalize_records8"] = dict(
+        max_abs_err=max(masked_err(a, b) for a, b in zip(g5, w5)),
+        ms=cuda_ms(torch, lambda: W.finalize_records8(*fin_args, **kw), 20),
+        plain_ms=cuda_ms(torch, lambda: W.finalize_records8_plain(
+            *fin_args, **kw), 3),
+        # 12 bytes a recorded row read, 8 bytes an output row written, 12
+        # bytes a lane read, 12 a check triple written; ~60 ops a recorded
+        # row, ~4 an output row
+        bound=bound(12 * read_rows + 8 * out_rows + 12 * Bd * nc + 12 * Bd,
+                    60 * read_rows + 4 * out_rows),
+        shape=[Bd, k8, nc], read_rows=read_rows)
+
+    n_slots = H * W_ * Cc
+    meta, metb = (a.reshape(Bd, -1) for a in g5[:2])
+    g6 = scatter_packed16(meta, metb, n_slots)
+    w6 = scatter_packed16_plain(meta, metb, n_slots)
+    check(torch.equal(g6, w6), "B5 raster differs from plain")
+    lit_records = int((metb != 0).sum())
+    res["scatter_packed16"] = dict(
+        max_abs_err=masked_err(g6, w6),
+        ms=cuda_ms(torch, lambda: scatter_packed16(meta, metb, n_slots), 20),
+        plain_ms=cuda_ms(torch, lambda: scatter_packed16_plain(
+            meta, metb, n_slots), 5),
+        # the value word of every record read, the slot word of each record
+        # that carries a literal, the raster written once; ~8 ops a record
+        bound=bound(4 * meta.numel() + 4 * lit_records + 2 * Bd * n_slots,
+                    8 * meta.numel()),
+        shape=[Bd, meta.shape[1]], n_slots=n_slots, lit_records=lit_records)
+
+    g7 = expand(g6, h=H, w=W_, c=Cc)
+    w7 = expand_plain(g6, h=H, w=W_, c=Cc)
+    check(torch.equal(g7, w7), "B6 pixels differ from plain")
+    idx = [i for i, p in enumerate(pngs) if not is_stored(p)]
+    check(np.array_equal(g7.cpu().numpy(), imgs[idx]),
+          "B3-B6 chain pixels differ from the corpus")
+    res["expand"] = dict(
+        max_abs_err=masked_err(g7, w7),
+        ms=cuda_ms(torch, lambda: expand(g6, h=H, w=W_, c=Cc), 20),
+        plain_ms=cuda_ms(torch, lambda: expand_plain(g6, h=H, w=W_, c=Cc), 5),
+        # slots read, bytes written and re-read/re-written by the defilter
+        # count once; ~8 ops a slot
+        bound=bound(3 * Bd * n_slots, 8 * Bd * n_slots),
+        shape=[Bd, H, W_, Cc])
     for name, r in res.items():
+        r["bound_ms"], r["bound_by"] = r.pop("bound")
+        r["library_ms"] = None  # no single PyTorch call computes these
         line("kernel", name=name, **r)
     return res
+
+
+def decode_spans(torch, T, pngs, Cc, runs=3):
+    """decode_batch runs with the decoder's stage spans on
+    (models/decoder.py:_span, a synchronise at each end of a stage): per
+    run its wall time, each stage, and rest = wall - the stages (Python
+    between the spans), all from that one run."""
+    from fpng_tpu_torch.models.decoder import decode_batch
+
+    out = []
+    for _ in range(runs):
+        decode_batch.spans = {}
+        t = time.perf_counter()
+        T.decode_batch(pngs, Cc, device=DEV)
+        wall = time.perf_counter() - t
+        st = {f"{k}_s": v for k, v in decode_batch.spans.items()}
+        decode_batch.spans = None
+        out.append(dict(wall_s=wall, **st, rest_s=wall - sum(st.values())))
+    return out
+
+
+def profile_decode(torch, T, pngs, Cc):
+    """One decode under torch.profiler: (wall s, device busy s, device
+    idle share, the five device kernels with the most time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        T.decode_batch(pngs, Cc, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans, per_name = [], {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        s, t_end = e.time_range.start, e.time_range.end
+        spans.append((s, t_end))
+        per_name[e.name] = per_name.get(e.name, 0.0) + (t_end - s) / 1e6
+    if not spans:
+        return wall, None, None, []
+    spans.sort()
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, t_end in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, t_end
+        else:
+            cur_e = max(cur_e, t_end)
+    busy = (busy + cur_e - cur_s) / 1e6
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    return wall, busy, 1 - busy / wall, [[k[:60], v] for k, v in top]
 
 
 def main():
@@ -220,15 +423,35 @@ def main():
          nvcc=(nvcc.stdout.strip().splitlines() or ["?"])[-1])
 
     import fpng_tpu_torch as T
-    from fpng_tpu import golden
+    from fpng_tpu_torch import golden
     from fpng_tpu_torch.models.decoder import decode_batch
-    from fpng_tpu_torch.ops.bitpack import deposit_bits
+    from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
     from fpng_tpu_torch.ops.checksum import crc_chunks
     from fpng_tpu_torch.ops.encfuse import encode_bits_fused
+    from fpng_tpu_torch.ops.expand import expand
+    from fpng_tpu_torch.ops.walk8 import finalize_records8, walk_fix8
 
     counters = {"encode_bits_fused": encode_bits_fused,
                 "crc32_words_masked_raw": crc_chunks,
-                "deposit_bits": deposit_bits}
+                "deposit_bits": deposit_bits,
+                "walk_fix8": walk_fix8,
+                "finalize_records8": finalize_records8,
+                "scatter_packed16": scatter_packed16,
+                "expand": expand}
+    walk8_path = ("encode_bits_fused", "crc32_words_masked_raw", "walk_fix8",
+                  "finalize_records8", "scatter_packed16", "expand")
+    chunked_path = ("encode_bits_fused", "crc32_words_masked_raw",
+                    "deposit_bits")
+
+    def reset():
+        for f in counters.values():
+            f.launches = 0
+        decode_batch.device_images = decode_batch.host_handoffs = 0
+        decode_batch.walk8_overflows = 0
+        decode_batch.paths = {"walk8": 0, "chunked": 0}
+
+    def read():
+        return {k: f.launches for k, f in counters.items()}
 
     # --- 2. build ----------------------------------------------------------
     cached = os.path.exists(kernels.library_path())
@@ -243,21 +466,22 @@ def main():
     B, H, W, Cc = imgs.shape
     kres = phase_kernels(torch, imgs)
 
-    # --- 4. main path at the benchmark's headline size -----------------------
-    for f in counters.values():
-        f.launches = 0
-    decode_batch.device_images = decode_batch.host_handoffs = 0
+    # --- 4. main path at the benchmark's headline size: walk8 decode ---------
+    reset()
     pngs = T.encode_batch(imgs, device=DEV)
     sts, outs = T.decode_batch(pngs, Cc, device=DEV)
-    launches = {k: f.launches for k, f in counters.items()}
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
+    launches = read()
+    check(all(launches[k] > 0 for k in walk8_path),
+          f"a kernel of the walk8 path never launched: {launches}")
     check(sts == [0] * B, "decode statuses")
     check(all(np.array_equal(o, i) for o, i in zip(outs, imgs)),
           "decoded pixels differ from the input")
-    check(decode_batch.device_images > 0, "no image decoded on the device")
-    main_dev, main_handoffs = (decode_batch.device_images,
-                               decode_batch.host_handoffs)
+    check(decode_batch.paths == {"walk8": 1, "chunked": 0},
+          f"headline decode paths {decode_batch.paths}")
+    check(decode_batch.host_handoffs == 0 and
+          decode_batch.walk8_overflows == 0, "headline hand-offs")
+    main_dev = decode_batch.device_images
+    check(main_dev > 0, "no image decoded on the device")
     for png, img in zip(pngs, imgs):
         check(zlib_check(png, img), "zlib reconstruction")
     seen = {}
@@ -269,6 +493,8 @@ def main():
         check(st == 0 and np.array_equal(out, img), "golden decode")
     check(T.encode_batch(imgs[:8], device="cpu") == pngs[:8],
           "card PNG bytes differ from the port's CPU run")
+    check(T.decode_batch(pngs[:8], Cc, device="cpu")[1][3].tobytes() ==
+          outs[3].tobytes(), "card pixels differ from the port's CPU run")
     one = T.fpng_encode_image_to_memory(imgs[3], W, H, Cc,
                                          device=DEV)
     check(one == pngs[3], "fpng_encode_image_to_memory")
@@ -276,47 +502,95 @@ def main():
     check(st == 0 and (w_, h_, ch) == (W, H, Cc) and
           np.array_equal(out[..., :3], imgs[3]) and (out[..., 3] == 255).all(),
           "fpng_decode_memory")
-    enc_s, dec_s = [], []
+    enc_s, dec_s, passes = [], [], []
     for _ in range(3):
         t = time.perf_counter()
         p2 = T.encode_batch(imgs, device=DEV)
         enc_s.append(time.perf_counter() - t)
+        n0 = walk_fix8.launches
         t = time.perf_counter()
         s2, _ = T.decode_batch(p2, Cc, device=DEV)
         dec_s.append(time.perf_counter() - t)
+        passes.append(walk_fix8.launches - n0)
         check(p2 == pngs and s2 == sts, "steady-state runs differ")
+    span_runs = decode_spans(torch, T, pngs, Cc)
+    stages = {k: float(np.median([r[k] for r in span_runs]))
+              for k in span_runs[0]}
+    wall, busy, idle, top = profile_decode(torch, T, pngs, Cc)
     mpix = B * H * W / 1e6
     line("main_path", batch=[B, H, W, Cc], encode_mpix_s=mpix / min(enc_s),
          decode_mpix_s=mpix / min(dec_s), encode_s=enc_s, decode_s=dec_s,
+         decode_path="walk8", walk8_passes=passes,
          stored_fallbacks=sum(map(is_stored, pngs)),
-         device_decoded=main_dev, host_handoffs=main_handoffs,
+         device_decoded=main_dev, host_handoffs=0, walk8_overflows=0,
          golden_checked=len(seen), bytes=sum(map(len, pngs)),
          launches=launches)
+    line("decode_stages", batch=[B, H, W, Cc], median=stages,
+         spans_cost_s=stages["wall_s"] - float(np.median(dec_s)),
+         runs=span_runs)
+    line("decode_profile", batch=[B, H, W, Cc], wall_s=wall,
+         device_busy_s=busy, device_idle_share=idle, top_device=top)
 
     # --- 5. large raster -------------------------------------------------------
     big = mosaic_4k(tiles)
-    decode_batch.device_images = decode_batch.host_handoffs = 0
+    reset()
     times = {}
     for run in range(2):
         t = time.perf_counter()
         bp = T.encode_batch(big, device=DEV)
         te = time.perf_counter() - t
+        n0 = walk_fix8.launches
         t = time.perf_counter()
         bs, bo = T.decode_batch(bp, 3, device=DEV)
-        times[run] = (te, time.perf_counter() - t)
+        times[run] = (te, time.perf_counter() - t, walk_fix8.launches - n0)
     check(bs == [0, 0] and all(np.array_equal(o, i) for o, i in zip(bo, big)),
           "4K round trip")
     check(all(zlib_check(p, i) for p, i in zip(bp, big)), "4K zlib check")
-    check(decode_batch.device_images > 0, "no 4K image decoded on device")
+    check(decode_batch.paths == {"walk8": 2, "chunked": 0},
+          f"4K decode paths {decode_batch.paths}")
+    check(decode_batch.device_images == 4, "4K images not decoded on device")
     mpix = big.shape[0] * big.shape[1] * big.shape[2] / 1e6
     line("large_raster", batch=list(big.shape), encode_s=times[1][0],
          decode_s=times[1][1], encode_mpix_s=mpix / times[1][0],
-         decode_mpix_s=mpix / times[1][1], first_run_s=list(times[0]),
+         decode_mpix_s=mpix / times[1][1], first_run_s=list(times[0][:2]),
+         decode_path="walk8", walk8_passes=times[1][2],
          stored_fallbacks=sum(map(is_stored, bp)),
-         host_handoffs=decode_batch.host_handoffs // 2,
+         host_handoffs=decode_batch.host_handoffs,
          bytes=[len(p) for p in bp])
 
-    # --- 6. corrupted streams -----------------------------------------------
+    # --- 6. chunked decode (reduced depth) and the overflow chain -----------
+    small_b = imgs[:32]
+    os.environ["FPNG_TPU_WALK8"] = "0"
+    reset()
+    cp = T.encode_batch(small_b, device=DEV)
+    t = time.perf_counter()
+    cs, co = T.decode_batch(cp, Cc, device=DEV)
+    chunked_s = time.perf_counter() - t
+    chunked_launches = read()
+    del os.environ["FPNG_TPU_WALK8"]
+    check(all(chunked_launches[k] > 0 for k in chunked_path),
+          f"a kernel of the chunked path never launched: {chunked_launches}")
+    check(decode_batch.paths == {"walk8": 0, "chunked": 1},
+          f"chunked decode paths {decode_batch.paths}")
+    check(cs == [0] * len(small_b) and all(np.array_equal(o, i)
+                                 for o, i in zip(co, small_b)),
+          "chunked round trip")
+    ovf_img = np.random.default_rng(0).integers(0, 2, (200, 256, 3)) \
+        .astype(np.uint8)
+    ovf_png = golden.encode_image_to_memory(ovf_img, 256, 200, 3,
+                                            T.FPNG_ENCODE_SLOWER)
+    reset()
+    os_, oo = T.decode_batch([ovf_png], 3, device=DEV)
+    check(os_ == [0] and np.array_equal(oo[0], ovf_img), "overflow image")
+    check(decode_batch.walk8_overflows == 1 and
+          decode_batch.paths == {"walk8": 0, "chunked": 1} and
+          decode_batch.host_handoffs == 1,
+          "overflow image did not go walk8 -> chunked -> host")
+    line("chunked", batch=list(small_b.shape), decode_s=chunked_s,
+         launches=chunked_launches, overflow_chain=["walk8", "chunked",
+                                                    "host"])
+
+    # --- 7. corrupted streams -----------------------------------------------
     rng = np.random.default_rng(11)
     small = [(rng.normal(120, 30, (24, 31, 3)).clip(0, 255)).astype(np.uint8),
              np.full((20, 20, 3), 7, np.uint8), tiles[0][:40, :50]]
@@ -330,7 +604,7 @@ def main():
             b[pos] ^= rng.integers(1, 256, k).astype(np.uint8)
             bad.append(b.tobytes())
     os.environ["FPNG_TPU_DISABLE_DECODE_CRC32_CHECKS"] = "1"
-    decode_batch.device_images = 0
+    reset()
     got_st, got_img = T.decode_batch(bad, 3, device=DEV)
     for data, s, im in zip(bad, got_st, got_img):
         gs, gi, *_ = golden.decode_memory(data, 3)
@@ -341,17 +615,24 @@ def main():
           "device decode")
     line("corrupted", streams=len(bad), statuses_match_golden=len(bad),
          accepted=sum(s == 0 for s in got_st),
-         device_decoded=decode_batch.device_images)
+         device_decoded=decode_batch.device_images,
+         paths=decode_batch.paths)
 
-    # --- 7. close ------------------------------------------------------------
+    # --- 8. close ------------------------------------------------------------
     check("jax" not in sys.modules, "JAX was imported")
-    line("launches", **launches)
+    check(not [m for m in sys.modules
+               if m == "fpng_tpu" or m.startswith("fpng_tpu.")],
+          "fpng_tpu was imported")
+    path_launches = dict(launches, deposit_bits=chunked_launches[
+        "deposit_bits"])
+    line("launches", walk8_path=launches, chunked_path=chunked_launches)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": kres[name]["max_abs_err"],
-         "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"]}
+         "launches": path_launches[name],
+         **{k: kres[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}}
         for name, src, rep in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,16 +10,17 @@ fpng_tpu_torch/csrc on first use); a CPU tensor goes through their plain
 torch versions.  There is no fallback between the two: a kernel that fails
 to build or launch raises.
 
-Importing this package needs neither a card nor a CUDA toolchain, and it
-imports no JAX: the framework-free host layer (constants, container,
-golden, huffman, bitio, tables, runtime) is reused from fpng_tpu.
+Importing this package needs neither a card nor a CUDA toolchain.  It
+imports no JAX and nothing of fpng_tpu: it keeps its own copy of the
+framework-free host layer (constants, bitio, huffman, container, golden,
+tables, train, runtime).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from fpng_tpu.constants import (  # noqa: F401  (public API re-exports)
+from .constants import (  # noqa: F401  (public API re-exports)
     FPNG_DECODE_FAILED_CHUNK_PARSING,
     FPNG_DECODE_FAILED_DIMENSIONS_TOO_LARGE,
     FPNG_DECODE_FAILED_HEADER_CRC32,
@@ -36,9 +37,9 @@ from fpng_tpu.constants import (  # noqa: F401  (public API re-exports)
     FPNG_ENCODE_SLOWER,
     FPNG_FORCE_UNCOMPRESSED,
 )
-from fpng_tpu.container import adler32 as fpng_adler32  # noqa: F401
-from fpng_tpu.container import crc32 as fpng_crc32  # noqa: F401
-from fpng_tpu.container import get_info as fpng_get_info  # noqa: F401
+from .container import adler32 as fpng_adler32  # noqa: F401
+from .container import crc32 as fpng_crc32  # noqa: F401
+from .container import get_info as fpng_get_info  # noqa: F401
 
 __version__ = "0.1.0"
 

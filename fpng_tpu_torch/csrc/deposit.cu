@@ -1,4 +1,5 @@
-// B10: the generic monotone bit deposit (decoder record expansion).
+// B10: the generic monotone bit deposit (the chunked decode's record
+// expansion), and B5: the walk8 decode's literal deposit.
 //
 // Replaces fpng_tpu/ops/bitpack.py:scatter_bits_tpu (Pallas kernel
 // _make_deposit_kernel in generic mode, with _window_deposit), as reached
@@ -44,6 +45,32 @@ deposit_kernel(const int* __restrict__ vals, const int* __restrict__ offs,
   sink.flush(w, num_words);
 }
 
+// B5 replaces fpng_tpu/ops/bitpack.py:scatter_packed16_tpu (the packed16
+// "pair" mode of _make_deposit_kernel with wide records).  The TPU deposited
+// 32-bit units at bit offset slot * 16 through a carried VMEM window; the
+// walk's literal slots are distinct, so here each record is two plain
+// 16-bit stores into the zeroed raster - (0x100 | v1) at slot and, when
+// present, (0x100 | v2) at slot + 1 - with no atomics.  One thread per
+// record; a warp's records are consecutive lanes of one step, so their
+// loads are contiguous.  What bounds it on the H100: bytes (the value word
+// read per record, the slot word only where a literal lands, 2 bytes
+// written per slot counting the wrapper's zero fill).
+__global__ void __launch_bounds__(kThreads)
+scatter_packed16_kernel(const int* __restrict__ meta,
+                        const int* __restrict__ metb, long long n,
+                        int N, int n_slots, uint16_t* __restrict__ raster) {
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const uint32_t v = (uint32_t)metb[t];
+  if (v == 0) return;
+  const int slot = meta[t];
+  if (slot < 0) return;
+  uint16_t* r = raster + (size_t)(t / N) * n_slots;
+  const uint32_t lo = v & 0xFFFF, hi = v >> 16;
+  if (lo != 0 && slot < n_slots) r[slot] = (uint16_t)lo;
+  if (hi != 0 && slot + 1 < n_slots) r[slot + 1] = (uint16_t)hi;
+}
+
 }  // namespace
 }  // namespace fpng
 
@@ -55,5 +82,19 @@ extern "C" int fpng_deposit(const int* vals, const int* offsets, int B, int N,
   const dim3 grid((N + kTile - 1) / kTile, B);
   deposit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       vals, offsets, N, num_words, (uint32_t*)words);
+  return (int)cudaGetLastError();
+}
+
+// meta (slots), metb (values) (B, N) -> raster (B, n_slots) int16, zeroed by
+// the caller.
+extern "C" int fpng_scatter_packed16(const int* meta, const int* metb, int B,
+                                     int N, int n_slots, short* raster,
+                                     void* stream) {
+  using namespace fpng;
+  if (B <= 0 || N <= 0) return 0;
+  const long long n = (long long)B * N;
+  scatter_packed16_kernel<<<(unsigned)((n + kThreads - 1) / kThreads),
+                            kThreads, 0, (cudaStream_t)stream>>>(
+      meta, metb, n, N, n_slots, (uint16_t*)raster);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,10 @@
 """Build and bind the port's CUDA kernels (fpng_tpu_torch/csrc/*.cu).
 
-The sources are compiled by `nvcc` at first use into one shared library
-with a plain C interface, keyed on a hash of the sources and the flags, and
-bound with ctypes.  Nothing here runs at import: `import fpng_tpu_torch`
-needs neither a card nor a CUDA toolchain.
+The sources are compiled at first use - one `nvcc -c` per .cu file, all
+started together, then one link - into one shared library with a plain C
+interface, keyed on a hash of the sources and the flags, and bound with
+ctypes.  Nothing here runs at import: `import fpng_tpu_torch` needs neither
+a card nor a CUDA toolchain.
 
 Every C entry point launches on the stream it is given (the caller passes
 `torch.cuda.current_stream().cuda_stream`), allocates nothing, does not
@@ -24,7 +25,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), ".build", "fpng_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,18 @@ _SIGNATURES = {
     "fpng_crc_words": [_P, _P, _P, _P, _I, _I, _P, _P],
     # vals, offsets, B, N, num_words, words, stream
     "fpng_deposit": [_P, _P, _I, _I, _I, _P, _P],
+    # words, nw, lut, p0, zl8, B, NC, ST, first, ent, exit_in, exit_out,
+    # nst, ovf, posr, raw0, raw1, changed, stream
+    "fpng_walk8_pass": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _P],
+    # posr, raw0, raw1, ST, nst, e_fin, out0, B, NC, k8, h, bpl, c, meta,
+    # metb, chk, stream
+    "fpng_finalize8": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P, _P, _P, _P],
+    # meta, metb, B, N, n_slots, raster, stream
+    "fpng_scatter_packed16": [_P, _P, _I, _I, _I, _P, _P],
+    # raster, B, h, w, c, out, stream
+    "fpng_expand": [_P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None
@@ -74,11 +87,30 @@ def build() -> str:
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    nvcc = nvcc_path()
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for obj, p in zip(objs, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc failed ({p.returncode}) for {obj}:\n{err}")
+    if not errors:
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            errors.append(f"nvcc link failed ({res.returncode}):\n"
+                          f"{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, so)
     return so
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fpng_tpu import constants as C
+from .. import constants as C
 
 from ..ops.assemble import idat_crc_words, raw_idat_prefix
 from ..ops.checksum import adler32_bytes
@@ -137,8 +137,8 @@ def encode_kernel(imgs, codes, sizes, base_bits, pend_val, pend_n, *,
 
 
 def _stored_png(img: np.ndarray) -> bytes:
-    from fpng_tpu.container import build_png
-    from fpng_tpu.golden import write_stored_stream
+    from ..container import build_png
+    from ..golden import write_stored_stream
 
     h, w, c = img.shape
     filtered0 = np.zeros((h, 1 + w * c), np.uint8)
@@ -176,7 +176,7 @@ def _finish_batch_devcrc(images, words, crc, total_bits, last_tok, adler,
     """Host tail of the device-CRC assembly: per-image memcpy splice of
     hdr58 + prefix + payload words + adler + crc + IEND, with the stored
     fallback where the budget rule fired (fpng.cpp:1728-1758)."""
-    from fpng_tpu.container import build_header
+    from ..container import build_header
 
     B, H, W, Cc = images.shape
     words = words.cpu().numpy()

@@ -1,5 +1,5 @@
-"""Parallel variable-length bitstream packing (counterpart of
-fpng_tpu/ops/bitpack.py).
+"""Parallel variable-length bitstream packing and the decoder's literal
+deposit (counterpart of fpng_tpu/ops/bitpack.py).
 
 The reference's sequential 64-bit accumulator (PUT_BITS*, fpng.cpp:564-588)
 becomes per-unit (value, nbits) pairs -> exclusive prefix sum of nbits ->
@@ -83,3 +83,54 @@ def deposit_bits(vals: torch.Tensor, nbits: torch.Tensor,
 
 
 deposit_bits.launches = 0
+
+
+def scatter_packed16_plain(meta: torch.Tensor, metb: torch.Tensor,
+                           n_slots: int) -> torch.Tensor:
+    """Plain torch version of kernel B5 (same contract as
+    scatter_packed16): two scatters into a zeroed raster whose two extra
+    columns collect the records that deposit nothing."""
+    slot = meta.to(torch.int64)
+    v = metb.to(torch.int64) & MASK32
+    lo, hi = v & 0xFFFF, v >> 16
+    ok = slot >= 0
+    out = torch.zeros((meta.shape[0], n_slots + 2), dtype=torch.int32,
+                      device=meta.device)
+    out.scatter_(1, torch.where(ok & (lo != 0) & (slot < n_slots), slot,
+                                n_slots), lo.to(torch.int32))
+    out.scatter_(1, torch.where(ok & (hi != 0) & (slot + 1 < n_slots),
+                                slot + 1, n_slots + 1), hi.to(torch.int32))
+    return out[:, :n_slots].to(torch.int16)
+
+
+def scatter_packed16(meta: torch.Tensor, metb: torch.Tensor,
+                     n_slots: int) -> torch.Tensor:
+    """Literal deposit into a 16-bit-slot raster: the wrapper of kernel B5
+    (csrc/deposit.cu), which replaces fpng_tpu's scatter_packed16_tpu
+    with its wide records.
+
+    meta (B, N) int32 slots; metb (B, N) int32 values, (0x100 | v1) |
+    (0x100 | v2) << 16 with 0 = gap.  The low half lands at `slot`, a
+    non-zero high half at slot + 1; halves outside [0, n_slots) are
+    dropped.  The slots that records fill must be distinct (the walk's
+    literals are).  Returns a (B, n_slots) int16 raster, zero where no
+    literal landed.  A CPU tensor takes scatter_packed16_plain; a CUDA
+    tensor launches the kernel or raises.
+    """
+    if meta.device.type == "cpu":
+        return scatter_packed16_plain(meta, metb, n_slots)
+    K.require_cuda("scatter_packed16", meta, metb)
+    if meta.dim() != 2 or metb.shape != meta.shape:
+        raise ValueError("scatter_packed16: meta and metb must be (B, N)")
+    B, N = meta.shape
+    if N >= 1 << 31 or n_slots >= 1 << 31:
+        raise ValueError("scatter_packed16: sizes past int32")
+    raster = torch.zeros((B, n_slots), dtype=torch.int16, device=meta.device)
+    K.check(K.lib().fpng_scatter_packed16(
+        meta.data_ptr(), metb.data_ptr(), B, N, n_slots, raster.data_ptr(),
+        K.stream_ptr(meta.device)), "fpng_scatter_packed16")
+    scatter_packed16.launches += 1
+    return raster
+
+
+scatter_packed16.launches = 0

@@ -89,7 +89,8 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
     (B, num_words) int32 uint32 patterns, total_bits (B,) int32, last_tok
     (B,) int32).  Every
     word equals encode_bits_plain's.  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel or raises.
+    a CUDA tensor launches the kernel (three launches, counted in
+    `encode_bits_fused.launches`) or raises.
     """
     if desc.device.type == "cpu":
         return encode_bits_plain(desc, tbl, base_bits, num_words)
@@ -111,7 +112,7 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
         desc.data_ptr(), tbl.data_ptr(), base_bits.data_ptr(), B, N,
         num_words, words.data_ptr(), total.data_ptr(), last_tok.data_ptr(),
         block_offs.data_ptr(), K.stream_ptr(dev)), "fpng_encfuse")
-    encode_bits_fused.launches += 1
+    encode_bits_fused.launches += 3  # encfuse_sums, _scan, _deposit
     return words, total, last_tok
 
 

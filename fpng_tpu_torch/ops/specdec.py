@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fpng_tpu import constants as C
+from .. import constants as C
 
 from .bitpack import deposit_bits
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from fpng_tpu.constants import MATCH_CAP_PIXELS
+from ..constants import MATCH_CAP_PIXELS
 
 
 def match_fields(deltas: torch.Tensor, num_chans: int):

@@ -14,12 +14,19 @@ import pytest
 import torch
 
 import fpng_tpu_torch as T
+from fpng_tpu_torch import golden
+from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
 from fpng_tpu_torch.models.encoder import _budget, _num_words, build_desc
+from fpng_tpu_torch.ops import walk8 as W
 from fpng_tpu_torch.ops.assemble import idat_crc_words, raw_idat_prefix
-from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_bits
+from fpng_tpu_torch.ops.bitpack import (deposit_bits, scatter_bits,
+                                        scatter_packed16,
+                                        scatter_packed16_plain)
 from fpng_tpu_torch.ops.checksum import crc_chunks, crc_chunks_plain
 from fpng_tpu_torch.ops.encfuse import encode_bits_fused, encode_bits_plain
+from fpng_tpu_torch.ops.expand import expand, expand_plain
 from fpng_tpu_torch.tables import one_pass_state
+from fpng_tpu_torch.train import synthetic_corpus
 
 pytestmark = pytest.mark.usefixtures("cuda_device")
 
@@ -74,7 +81,7 @@ def test_encfuse_matches_plain(rng, shape, nw_cut):
     n0 = encode_bits_fused.launches
     got = encode_bits_fused(desc, tbl, base, nw)
     torch.cuda.synchronize()
-    assert encode_bits_fused.launches == n0 + 1
+    assert encode_bits_fused.launches == n0 + 3
     want = encode_bits_plain(desc.cpu(), tbl.cpu(), base.cpu(), nw)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -146,3 +153,114 @@ def test_roundtrip_on_card_matches_cpu(rng):
     sts, outs = T.decode_batch(gpu, 3, device="cuda")
     assert sts == [0, 0, 0]
     assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+
+
+def _walk_inputs(case):
+    """Packed streams: 3-channel 1-pass, 4-channel 2-pass (per-image
+    tables), and a 256 x 256 stream of ~2 600 chunks (many blocks)."""
+    if case == "rgb_1pass":
+        tiles = list(synthetic_corpus(3, size=48))
+        imgs = np.stack([tiles[0], tiles[9], tiles[20]])
+        pngs = T.encode_batch(imgs, 0, device="cpu")
+    elif case == "rgba_2pass":
+        tiles = list(synthetic_corpus(4, size=40))
+        imgs = np.stack([tiles[9], tiles[0], tiles[30]])
+        pngs = [golden.encode_image_to_memory(i, 40, 40, 4,
+                                              T.FPNG_ENCODE_SLOWER)
+                for i in imgs]
+    else:
+        imgs = list(synthetic_corpus(3, size=256))[18][None]
+        pngs = T.encode_batch(imgs, 0, device="cpu")
+    metas = [_parse_one(p) for p in pngs]
+    assert all(m[7] is not None for m in metas)
+    return imgs, [torch.from_numpy(a.astype(t)) for a, t in zip(
+        pack_streams(metas), (np.uint8, np.int32, np.int32, np.int32))]
+
+
+@pytest.mark.parametrize("case", ["rgb_1pass", "rgba_2pass", "multiblock"])
+def test_walk8_kernels_match_plain(case):
+    imgs, (stream, luts, p0, zl) = _walk_inputs(case)
+    B, h, w, c = imgs.shape
+    nc = W.n_chunks(int(zl.max()))
+    words = W.stream_words(stream)
+    zl8 = zl * 8
+    n0 = W.walk_fix8.launches
+    got = W.walk_fix8(words.cuda(), luts.cuda(), p0.cuda(), zl8.cuda(),
+                      n_chunks=nc)
+    torch.cuda.synchronize()
+    want = W.walk_fix8_plain(words, luts, p0, zl8, n_chunks=nc)
+    assert got[6] == want[6] > 1 and W.walk_fix8.launches == n0 + got[6]
+    for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf
+        assert torch.equal(g.cpu(), w_)
+    if case == "multiblock":
+        assert nc > 2 * 128
+    rows = torch.arange(got[3].shape[1])[None, :, None] < want[1][:, None]
+    for g, w_ in zip(got[3:6], want[3:6]):  # records, up to each lane's nst
+        assert torch.equal(torch.where(rows, g.cpu(), 0),
+                           torch.where(rows, w_, 0))
+
+    e_fin, nst = got[0], got[1]
+    posr, raw0, raw1 = got[3:6]
+    out0 = torch.arange(nc, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, nc).contiguous() * 37  # any offsets exercise B4
+    for k8 in (8, 48, posr.shape[1]):
+        kw = dict(k8=k8, h=h, bpl=w * c, c=c)
+        gk = W.finalize_records8(posr, raw0, raw1, nst, e_fin, out0, **kw)
+        wk = W.finalize_records8_plain(posr.cpu(), raw0.cpu(), raw1.cpu(),
+                                       nst.cpu(), e_fin.cpu(), out0.cpu(),
+                                       **kw)
+        for g, w_ in zip(gk, wk):
+            assert torch.equal(g.cpu(), w_)
+
+    out = W.decode_kernel8(stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda(),
+                           h=h, w=w, c=c, zlib_len_max=int(zl.max()))
+    assert out is not None and bool(out[1].all())
+    assert np.array_equal(out[0].cpu().numpy(), imgs)
+
+
+@pytest.mark.parametrize("c,h,w", [(3, 13, 7), (4, 9, 70), (3, 300, 517),
+                                   (4, 1, 1)])
+def test_expand_matches_plain(c, h, w):
+    rng = np.random.default_rng(c * h + w)
+    B = 3
+    raster = torch.from_numpy(
+        rng.integers(-(1 << 15), 1 << 15, (B, h * w * c)).astype(np.int16))
+    raster[torch.from_numpy(rng.random((B, h * w * c)) < 0.5)] &= ~0x100
+    n0 = expand.launches
+    got = expand(raster.cuda(), h=h, w=w, c=c)
+    torch.cuda.synchronize()
+    assert expand.launches == n0 + 2
+    assert torch.equal(got.cpu(), expand_plain(raster, h=h, w=w, c=c))
+
+
+@pytest.mark.parametrize("n,n_slots", [(5000, 9000), (70000, 150000)])
+def test_scatter_packed16_matches_plain(n, n_slots):
+    rng = np.random.default_rng(n)
+    B = 3
+    # distinct slots, at most one record per slot pair, some out of range
+    slots = np.sort(rng.choice(n_slots // 2 + 8, (B, n)), axis=1) * 2 - 4
+    kind = rng.integers(0, 3, (B, n))
+    v = rng.integers(0, 256, (B, n, 2))
+    metb = np.where(kind > 0, 0x100 | v[..., 0], 0) | \
+        np.where(kind == 2, (0x100 | v[..., 1]) << 16, 0)
+    first = np.concatenate([np.ones((B, 1), bool),
+                            slots[:, 1:] != slots[:, :-1]], axis=1)
+    metb = np.where(first, metb, 0)
+    meta, metb = (torch.from_numpy(a.astype(np.int32)) for a in (slots, metb))
+    n0 = scatter_packed16.launches
+    got = scatter_packed16(meta.cuda(), metb.cuda(), n_slots)
+    torch.cuda.synchronize()
+    assert scatter_packed16.launches == n0 + 1
+    assert torch.equal(got.cpu(), scatter_packed16_plain(meta, metb, n_slots))
+
+
+def test_decode_batch_takes_walk8_on_card():
+    tiles = list(synthetic_corpus(3, size=64))
+    imgs = np.stack(tiles[:12])
+    pngs = T.encode_batch(imgs, 0, device="cuda")
+    counters = (W.walk_fix8, W.finalize_records8, scatter_packed16, expand)
+    before = [f.launches for f in counters]
+    sts, outs = T.decode_batch(pngs, 3, device="cuda")
+    assert sts == [0] * len(imgs)
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    assert all(f.launches > n for f, n in zip(counters, before))

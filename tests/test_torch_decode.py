@@ -119,6 +119,24 @@ def test_mixed_batch():
         [C.FPNG_DECODE_INVALID_ARG] * 4
 
 
+def test_stage_spans_time_the_decode_without_changing_it(monkeypatch):
+    from fpng_tpu_torch.train import synthetic_corpus
+
+    a = np.ascontiguousarray(list(synthetic_corpus(3, size=32))[0][:21, :13])
+    pngs = [T.encode_batch(a[None], 0, device="cpu")[0],
+            T.encode_batch(a[None], F.FPNG_FORCE_UNCOMPRESSED,
+                           device="cpu")[0]]
+    want = T.decode_batch(pngs, 3, device="cpu")
+    monkeypatch.setattr(decode_batch, "spans", {})
+    got = T.decode_batch(pngs, 3, device="cpu")
+    assert got[0] == want[0] == [0, 0]
+    assert all(np.array_equal(g, w) for g, w in zip(got[1], want[1]))
+    spans = decode_batch.spans
+    assert set(spans) == {"parse", "host_stored", "pack", "h2d", "device",
+                          "d2h", "finish"}
+    assert all(v >= 0 for v in spans.values())
+
+
 @pytest.fixture(scope="module")
 def fuzz_pngs():
     rng = np.random.default_rng(23)

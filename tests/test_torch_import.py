@@ -9,23 +9,41 @@ import torch
 
 import fpng_tpu_torch as T
 from fpng_tpu import constants as C
-from fpng_tpu_torch.ops.bitpack import deposit_bits
+from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
 from fpng_tpu_torch.ops.checksum import crc_chunks
 from fpng_tpu_torch.ops.encfuse import encode_bits_fused
+from fpng_tpu_torch.ops.expand import expand
+from fpng_tpu_torch.ops.walk8 import finalize_records8, walk_fix8
+
+WRAPPERS = (encode_bits_fused, crc_chunks, deposit_bits, walk_fix8,
+            finalize_records8, scatter_packed16, expand)
 
 
 def test_import_leaves_out_jax_and_triton():
+    """Every module of the port, then a CPU encode and decode: no jax, no
+    triton, and nothing of fpng_tpu in sys.modules."""
     code = (
-        "import sys\n"
-        "import fpng_tpu_torch, fpng_tpu_torch.tables\n"
-        "import fpng_tpu_torch.models.encoder, fpng_tpu_torch.models.decoder\n"
-        "import fpng_tpu_torch.ops.assemble, fpng_tpu_torch.ops.specdec\n"
-        "bad = [m for m in ('jax', 'triton') if m in sys.modules]\n"
-        "print(','.join(bad) or 'clean')\n")
+        "import pkgutil, sys\n"
+        "import numpy as np\n"
+        "import fpng_tpu_torch as T\n"
+        "mods = [m.name for m in pkgutil.walk_packages(T.__path__,\n"
+        "                                              'fpng_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    __import__(m)\n"
+        "img = np.random.default_rng(1).integers(0, 9, (2, 6, 5, 3),\n"
+        "                                        dtype=np.uint8)\n"
+        "sts, outs = T.decode_batch(T.encode_batch(img, device='cpu'), 3,\n"
+        "                           device='cpu')\n"
+        "assert sts == [0, 0] and (np.stack(outs) == img).all()\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'triton', 'fpng_tpu')\n"
+        "       or m.startswith(('jax.', 'triton.', 'fpng_tpu.'))]\n"
+        "print(len(mods), ','.join(bad) or 'clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True,
                          cwd=__file__.rsplit("/tests/", 1)[0])
-    assert out.stdout.strip() == "clean", out.stdout + out.stderr
+    n, verdict = out.stdout.split()
+    assert verdict == "clean", out.stdout + out.stderr
+    assert int(n) >= 23  # every module of the port was imported
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -33,16 +51,14 @@ def test_cpu_tensors_take_the_plain_versions():
     touch the kernel library (there is no nvcc here)."""
     from fpng_tpu_torch import kernels
 
-    before = (encode_bits_fused.launches, crc_chunks.launches,
-              deposit_bits.launches)
+    before = [f.launches for f in WRAPPERS]
     rng = np.random.default_rng(3)
     imgs = rng.integers(0, 256, (2, 9, 11, 3), dtype=np.uint8)
     pngs = T.encode_batch(imgs, 0, device="cpu")
     sts, outs = T.decode_batch(pngs, 3, device="cpu")
     assert sts == [0, 0]
     assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
-    assert (encode_bits_fused.launches, crc_chunks.launches,
-            deposit_bits.launches) == before
+    assert [f.launches for f in WRAPPERS] == before
     assert kernels._lib is None
 
 

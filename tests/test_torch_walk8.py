@@ -1,0 +1,249 @@
+"""fpng_tpu_torch's walk8 decode against fpng_tpu's, on the CPU.
+
+The same packed streams go through fpng_tpu.ops.walk8 (Pallas in interpret
+mode, lpi=8) and through the port's plain versions of B3-B6; tolerance
+zero.  Walk records differ in layout and may differ in which steps a lane
+recorded before it converged, so they are compared only through what they
+deposit: converged entries, output offsets, overflow flags, the literal
+raster, pixels and ok flags.
+
+The Pallas finalize's interpret-mode compile grows steeply with its row
+count k8 (tens of seconds at the k8 these streams need), so the JAX chain
+runs it on 16-row slices of the records: the same kernel on the same rows,
+with each slice's entry carry (the lane's output offset after the rows
+before it) computed from the records as the kernel computes it.  Each JAX
+chain runs once per module.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import fpng_tpu_torch as T
+from fpng_tpu.ops import walk8 as JW
+from fpng_tpu.ops.bitpack import scatter_packed16_tpu
+from fpng_tpu.ops.specdec_tpu import _bpl_pad, expand_tpu
+from fpng_tpu_torch import golden
+from fpng_tpu_torch.models import decoder as TD
+from fpng_tpu_torch.ops import walk8 as TW
+from fpng_tpu_torch.train import synthetic_corpus
+
+LPI = 8
+PIECE = 16
+# one compile per (geometry, shapes), shared by every slice
+_finalize_piece = jax.jit(
+    functools.partial(JW._finalize_records8, k8=PIECE, lpi=LPI,
+                      interpret=True, wide=True),
+    static_argnames=("geom", "ncg"))
+
+
+def _pack(pngs):
+    metas = [TD._parse_one(p) for p in pngs]
+    assert all(m[7] is not None for m in metas)
+    stream, luts, p0, zl = TD.pack_streams(metas)
+    return stream, luts, p0.astype(np.int32), zl.astype(np.int32)
+
+
+def _lane_major(a, B, maxit, lpi):
+    """walk8 (B, NG, 64*maxit, lpi) record rows (row 8j+s = step j of lane
+    set s) -> (B, ST, NC) numpy, lane c = g*8*lpi + s*lpi + col."""
+    a = np.asarray(a)
+    ng = a.shape[1]
+    return a.reshape(B, ng, 8 * maxit, 8, lpi).transpose(0, 2, 1, 3, 4) \
+        .reshape(B, 8 * maxit, ng * 8 * lpi)
+
+
+def _jax_chain(stream, luts, p0, zl, *, h, w, c, maxit=JW.MAXIT):
+    B = stream.shape[0]
+    zmax = int(zl.max())
+    nc_pad, lpi = JW.plan_tpu8(zmax, LPI)
+    posr, raw0, raw1, nst4, e_fin, out0, diag = JW._decode_walk8(
+        jnp.asarray(stream), jnp.asarray(luts), jnp.asarray(p0),
+        jnp.asarray(zl), nc_pad=nc_pad, lpi=lpi, maxit=maxit, interpret=True)
+    d = int(diag)
+    res = dict(e_fin=np.asarray(e_fin), out0=np.asarray(out0),
+               ovf=bool(d & (1 << 30)))
+    if res["ovf"]:
+        return res
+    steps = d
+    unit = 8 * lpi
+    ncl = min(-(-max(-(-zmax * 8 // 512), 1) // unit) * unit, nc_pad)
+    rs, bpl, bpl_pad = 1 + w * c, w * c, _bpl_pad(w * c)
+    H8 = -(-h // 8) * 8
+
+    # each slice's entry carry: out0 plus the bytes of the rows before it
+    p, r0, r1 = (_lane_major(a, B, maxit, lpi) for a in (posr, raw0, raw1))
+    e = res["e_fin"][:, None, :]
+    nst = np.asarray(nst4).reshape(B, nc_pad)
+    rows = np.arange(8 * maxit)[None, :, None]
+    recbit = (((r0 >> 9) & 1) == 1) & (rows < nst[:, None])
+    dem = recbit & (r1 != 0) & (p < e) & (p + ((r0 >> 19) & 15) == e)
+    rec = (recbit & (p >= e)) | dem
+    ol = np.where(rec, np.where(dem, 1, (r0 >> 10) & 511), 0)
+    carry = res["out0"][:, None, :] + np.cumsum(ol, axis=1) - ol
+
+    metas, metbs, fail, eob, bad = [], [], False, None, None
+    for k in range(-(-steps // PIECE)):
+        sl = slice(8 * PIECE * k, 8 * PIECE * (k + 1))
+        meta, metb, chk = _finalize_piece(
+            posr[:, :, sl], raw0[:, :, sl], raw1[:, :, sl],
+            jnp.maximum(nst4 - PIECE * k, 0), e_fin,
+            jnp.asarray(carry[:, PIECE * k].astype(np.int32)),
+            geom=(rs, h * rs, c, bpl_pad), ncg=ncl // unit)
+        metas.append(np.asarray(meta).reshape(B, ncl, PIECE))
+        metbs.append(np.asarray(metb).reshape(B, ncl, PIECE))
+        chk = np.asarray(chk)
+        fail |= chk[:, :, 0].any(axis=1)
+        eob = chk[:, :, 1].min(axis=1) if eob is None else \
+            np.minimum(eob, chk[:, :, 1].min(axis=1))
+        bad = chk[:, :, 2].min(axis=1) if bad is None else \
+            np.minimum(bad, chk[:, :, 2].min(axis=1))
+    meta = np.concatenate(metas, axis=2).reshape(B, -1)
+    metb = np.concatenate(metbs, axis=2).reshape(B, -1)
+    dep = scatter_packed16_tpu(jnp.asarray(meta), H8 * (bpl_pad // 2),
+                               metb=jnp.asarray(metb), interpret=True,
+                               wide=True)
+    res["raster"] = np.asarray(dep).view(np.uint16) \
+        .reshape(B, H8, bpl_pad)[:, :h, :bpl]
+    res["imgs"] = np.asarray(expand_tpu(
+        jax.lax.bitcast_convert_type(dep, jnp.int32), h=h, w=w, c=c,
+        bpl_pad=bpl_pad, interpret=True))
+    res["ok"] = ~fail & (eob != JW._INF) & (eob <= bad) & \
+        (((eob.astype(np.int64) + 7) >> 3) == zl - 4)
+    return res
+
+
+def _port_chain(stream, luts, p0, zl, *, h, w, c, maxit=TW.MAXIT):
+    B = stream.shape[0]
+    args = (torch.from_numpy(stream), torch.from_numpy(luts.astype(np.int64)),
+            torch.from_numpy(p0), torch.from_numpy(zl))
+    nc = TW.n_chunks(int(zl.max()))
+    records, e_fin, out0, steps, ovf, passes = TW.decode_walk8(
+        *args, n_chunks=nc, maxit=maxit)
+    res = dict(e_fin=e_fin.numpy(), out0=out0.numpy(), ovf=bool(ovf.any()),
+               nc=nc, passes=passes)
+    out = TW.decode_kernel8(*args, h=h, w=w, c=c,
+                            zlib_len_max=int(zl.max()), maxit=maxit)
+    assert (out is None) == res["ovf"]
+    if out is None:
+        return res
+    k8 = TW.trim_steps(int(steps), records[0].shape[1])
+    meta, metb, _ = TW.finalize_records8(*records, e_fin, out0, k8=k8, h=h,
+                                         bpl=w * c, c=c)
+    res["raster"] = TW.scatter_packed16(
+        meta.reshape(B, -1), metb.reshape(B, -1), h * w * c).numpy() \
+        .view(np.uint16).reshape(B, h, w * c)
+    res["imgs"], res["ok"] = (a.numpy() for a in out)
+    return res
+
+
+def _case(name):
+    if name == "rgb_1pass":
+        tiles = list(synthetic_corpus(3, size=32))
+        imgs = np.stack([tiles[0], tiles[9]])
+        pngs = T.encode_batch(imgs, 0, device="cpu")
+    else:  # rgba_2pass: per-image tables
+        tiles = list(synthetic_corpus(4, size=32))
+        imgs = np.stack([tiles[9], tiles[0]])
+        pngs = [golden.encode_image_to_memory(i, 32, 32, 4,
+                                              T.FPNG_ENCODE_SLOWER)
+                for i in imgs]
+    return imgs, _pack(pngs)
+
+
+@pytest.fixture(scope="module", params=["rgb_1pass", "rgba_2pass"])
+def chains(request):
+    imgs, packed = _case(request.param)
+    _, h, w, c = imgs.shape
+    return (imgs, _jax_chain(*packed, h=h, w=w, c=c),
+            _port_chain(*packed, h=h, w=w, c=c), packed[3])
+
+
+def test_entries_and_offsets_match_jax(chains):
+    _, j, t, zl = chains
+    assert not j["ovf"] and not t["ovf"]
+    assert t["nc"] > 1 and t["passes"] > 1  # a real cross-chunk fixpoint
+    nc = t["nc"]
+    live = np.arange(nc)[None, :] * 512 < zl[:, None] * 8
+    assert np.array_equal(np.where(live, t["e_fin"], 0),
+                          np.where(live, j["e_fin"][:, :nc], 0))
+    assert np.array_equal(np.where(live, t["out0"], 0),
+                          np.where(live, j["out0"][:, :nc], 0))
+
+
+def test_deposit_raster_matches_jax(chains):
+    _, j, t, _ = chains
+    assert np.array_equal(t["raster"], j["raster"])
+
+
+def test_pixels_and_ok_match_jax(chains):
+    imgs, j, t, _ = chains
+    assert np.array_equal(t["ok"], j["ok"]) and t["ok"].all()
+    assert np.array_equal(t["imgs"], j["imgs"])
+    assert np.array_equal(t["imgs"], imgs)
+
+
+def test_overflow_flag_matches_jax():
+    """fpng_tpu's test_walk8_overflow_falls_back input: 2-pass Up-filter
+    noise over a binary alphabet codes more than 16 tokens per chunk, so a
+    maxit=2 walk (16 steps) overflows in both packages."""
+    rng = np.random.default_rng(3)
+    img = np.cumsum(rng.integers(0, 2, (32, 32, 3)), axis=0).astype(np.uint8)
+    packed = _pack([golden.encode_image_to_memory(
+        img, 32, 32, 3, T.FPNG_ENCODE_SLOWER)])
+    j = _jax_chain(*packed, h=32, w=32, c=3, maxit=2)
+    t = _port_chain(*packed, h=32, w=32, c=3, maxit=2)
+    assert j["ovf"] and t["ovf"]
+
+
+def _overflowing_rgba():
+    """A 2-pass 4-channel tile that needs more than 96 steps in a chunk."""
+    img = list(synthetic_corpus(4, size=32))[6]
+    return img, golden.encode_image_to_memory(img, 32, 32, 4,
+                                              T.FPNG_ENCODE_SLOWER)
+
+
+def test_walk8_overflow_falls_to_chunked_decode():
+    img, png = _overflowing_rgba()
+    stream, luts, p0, zl = _pack([png])
+    t = _port_chain(stream, luts, p0, zl, h=32, w=32, c=4)
+    assert t["ovf"]
+    n0, d0 = TD.decode_batch.walk8_overflows, TD.decode_batch.device_images
+    sts, outs = T.decode_batch([png], 4, device="cpu")
+    assert sts == [0] and np.array_equal(outs[0], img)
+    assert TD.decode_batch.walk8_overflows == n0 + 1
+    assert TD.decode_batch.device_images == d0 + 1
+
+
+@pytest.mark.parametrize("walk8", ["1", "0"])
+def test_dispatch_takes_walk8_by_default(walk8, monkeypatch):
+    monkeypatch.setenv("FPNG_TPU_WALK8", walk8)
+    tiles = list(synthetic_corpus(3, size=32))
+    imgs = np.stack([tiles[0][:21, :13], tiles[3][:21, :13]])
+    stream, luts, p0, zl = _pack(T.encode_batch(imgs, 0, device="cpu"))
+    got, ok, ovf, path = TD.dispatch_kernel(
+        torch.from_numpy(stream), torch.from_numpy(luts.astype(np.int64)),
+        torch.from_numpy(p0).long(), torch.from_numpy(zl).long(), h=21, w=13,
+        c=3, zmax=int(zl.max()))
+    assert path == ("walk8" if walk8 == "1" else "chunked")
+    assert ok.all() and not ovf.any()
+    assert np.array_equal(got.numpy(), imgs)
+
+
+@pytest.mark.parametrize("h,w,c,fits", [
+    (2160, 3840, 3, True), (8184, 4096, 4, True), (8189, 4096, 4, False),
+    (1, 1, 3, True), (9000, 4000, 4, False)])
+def test_walk8_gate_counts_allocated_rows(h, w, c, fits):
+    """8189 rows of 16384 slots fit in 2^27, but their 8192 allocated
+    rows do not."""
+    assert TW.fits(h, w * c) == fits
+
+
+@pytest.mark.parametrize("steps,want", [(0, 8), (8, 8), (9, 16), (69, 80),
+                                        (95, 96), (96, 96)])
+def test_trim_steps(steps, want):
+    assert TW.trim_steps(steps, 96) == want
