@@ -9,16 +9,23 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
   3. holds each kernel bit-exact against its plain torch version at the
      main path's shapes (B1, B2 and B10 on the encoder's and the chunked
      decode's shapes; B3-B6 on the decode of the headline corpus's own
-     streams), with CUDA-event times and a bytes/operations bound;
+     streams; B7 on the 32 bpp 1-pass corpus's cost-check inputs; B8 and
+     B9 on the decode of the 24 bpp 2-pass corpus, which overflows
+     walk8), with CUDA-event times and a bytes/operations bound;
   4. drives encode_batch / decode_batch (and the single-image entry
      points) at the headline size, 128 x 256 x 256 x 3: the decode takes
      the walk8 path, every file is checked with zlib and the port's
      golden, three decodes with the decoder's stage spans on give the
      stage split, and one profiled decode gives the device's idle share;
   5. does the same at 2 x 2160 x 3840 x 3;
-  6. drives the chunked decode (FPNG_TPU_WALK8=0) at reduced depth (32
-     images), and one stream that overflows walk8 through walk8 ->
-     chunked -> host;
+  modes: drives 24 bpp 2-pass, 32 bpp 1-pass and 32 bpp 2-pass at
+     128 x 256 x 256 x c the same way (rates best of three, zlib on every
+     file, golden on the distinct ones, the first 8 against the CPU run);
+  6. decodes one stream that overflows walk8 through walk8 -> PK=1, 32
+     images with FPNG_TPU_WALK8=0 (PK=1 straight away), and, with the
+     walk gate refusing as it does for a raster past 2^27 allocated
+     slots, the same 32 images on the chunked decode (B10) and the
+     overflow stream through chunked -> host;
   7. decodes corrupted streams against golden's statuses.
 
 The launch counters are set to 0 just before each path and read just
@@ -59,7 +66,16 @@ KERNELS = [  # name, source, the TPU kernel it replaces
      "fpng_tpu/ops/bitpack.py:466"),
     ("expand", "fpng_tpu_torch/csrc/expand.cu",
      "fpng_tpu/ops/specdec_tpu.py:866"),
+    ("demote_mask", "fpng_tpu_torch/csrc/demote.cu",
+     "fpng_tpu/ops/encfuse.py:336"),
+    ("walk_fix", "fpng_tpu_torch/csrc/walk8.cu",
+     "fpng_tpu/ops/specdec_tpu.py:350"),
+    ("finalize_records", "fpng_tpu_torch/csrc/finalize8.cu",
+     "fpng_tpu/ops/specdec_tpu.py:721"),
 ]
+MODES = [  # name, channels, 2-pass (bench.py's real3/real4 x 1/2-pass)
+    ("real3_2pass", 3, True), ("real4_1pass", 4, False),
+    ("real4_2pass", 4, True)]
 
 
 def check(cond, what):
@@ -99,12 +115,12 @@ def card_line():
         check=True).stdout.strip().splitlines()[0]
 
 
-def corpus(B=128, size=256):
+def corpus(B=128, size=256, c=3):
     """bench.py's corpus without example.png: synthetic tiles, repeated."""
     from fpng_tpu_torch.train import synthetic_corpus
 
     tiles = [np.ascontiguousarray(t[:size, :size])
-             for t in synthetic_corpus(3, size=size)]
+             for t in synthetic_corpus(c, size=size)]
     return np.stack((tiles * -(-B // len(tiles)))[:B]), tiles
 
 
@@ -344,11 +360,132 @@ def phase_kernels(torch, imgs):
         # count once; ~8 ops a slot
         bound=bound(3 * Bd * n_slots, 8 * Bd * n_slots),
         shape=[Bd, H, W_, Cc])
+    return kernel_line(res)
+
+
+def kernel_line(res):
     for name, r in res.items():
         r["bound_ms"], r["bound_by"] = r.pop("bound")
         r["library_ms"] = None  # no single PyTorch call computes these
         line("kernel", name=name, **r)
     return res
+
+
+def phase_demote(torch, imgs):
+    """B7 against its plain version on the cost-check inputs of a 32 bpp
+    1-pass batch (the 1-pass tables)."""
+    from fpng_tpu_torch.models.encoder import tokens
+    from fpng_tpu_torch.ops.encfuse import demote_mask, demote_mask_plain
+    from fpng_tpu_torch.tables import one_pass_state
+
+    B, H, W_, Cc = imgs.shape
+    st = one_pass_state(Cc, DEV)
+    deltas, _, mstart, mlen, _, ls, le = tokens(
+        torch.from_numpy(imgs).to(DEV), Cc)
+    args = (deltas, ls, le, mstart & (mlen == 1), st.tbl.expand(B, 8, 128)
+            .contiguous())
+    got, want = demote_mask(*args), demote_mask_plain(*args)
+    check(torch.equal(got, want), "B7 mask differs from plain")
+    n_px, n_cand = B * H * W_, int(args[3].sum())
+    check(n_cand > 0 and bool(got.any()), "the corpus has no demotion")
+    return kernel_line({"demote_mask": dict(
+        max_abs_err=int((got.to(torch.int32) - want.to(torch.int32))
+                        .abs().max()),
+        ms=cuda_ms(torch, lambda: demote_mask(*args), 20),
+        plain_ms=cuda_ms(torch, lambda: demote_mask_plain(*args), 5),
+        # cand read and the mask written, a byte a pixel; 4 delta bytes,
+        # len_sym and len_extra read per candidate; the 288 sizes per
+        # image; ~12 ops a candidate, 2 a pixel
+        bound=bound(2 * n_px + 12 * n_cand + 4 * 288 * B,
+                    12 * n_cand + 2 * n_px),
+        shape=[B, H, W_, Cc], candidates=n_cand,
+        demoted=int(got.sum()))})
+
+
+def phase_pk1(torch, T, imgs):
+    """B8 and B9 against their plain versions on the decode of a 2-pass
+    batch whose streams overflow walk8's 96 step rows."""
+    from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
+    from fpng_tpu_torch.ops import specdec_tpu as PK
+    from fpng_tpu_torch.ops import walk8 as W
+    from fpng_tpu_torch.ops.bitpack import scatter_packed16
+    from fpng_tpu_torch.ops.expand import expand
+
+    B, H, W_, Cc = imgs.shape
+    pngs = T.encode_batch(imgs, T.FPNG_ENCODE_SLOWER, device=DEV)
+    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
+    stream, luts, p0, zl = pack_streams(metas)
+    Bd = len(metas)
+    st_d = torch.from_numpy(stream).to(DEV)
+    lut32 = torch.from_numpy(luts.astype(np.int32)).to(DEV)
+    p0_d = torch.from_numpy(p0).to(DEV)
+    zl_d = torch.from_numpy(zl).to(DEV)
+    nc = W.n_chunks(int(zl.max()))
+    ovf = W.decode_walk8(st_d, lut32, p0_d, zl_d, n_chunks=nc)[4]
+    n_ovf = int(ovf.sum())
+    check(n_ovf > 0, "the 2-pass corpus does not overflow walk8")
+    words = W.stream_words(st_d)
+    p0_32, zl8_32 = p0_d.to(torch.int32), (zl_d * 8).to(torch.int32)
+
+    def walk():
+        return PK.walk_fix(words, lut32, p0_32, zl8_32, n_chunks=nc)
+
+    def walk_plain():
+        return PK.walk_fix_plain(words, lut32, p0_32, zl8_32, n_chunks=nc)
+
+    g, w = walk(), walk_plain()
+    check(g[6] == w[6], f"B8 passes {g[6]} != plain {w[6]}")
+    for a, b, what in zip(g[:3], w[:3], ("e_fin", "nst", "ovf")):
+        check(torch.equal(a, b), f"B8 {what} differs from plain")
+    rows = torch.arange(PK.ST8, device=DEV)[None, :, None] < w[1][:, None]
+    err = int((g[0].to(torch.int64) - w[0].to(torch.int64)).abs().max())
+    for a, b, what in zip(g[3:6], w[3:6], ("posr", "raw0", "raw1")):
+        a, b = torch.where(rows, a, 0), torch.where(rows, b, 0)
+        check(torch.equal(a, b), f"B8 {what} records differ from plain")
+        err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                           .abs().max()))
+    steps_sum = int(g[1].sum())
+    res = {"walk_fix": dict(
+        max_abs_err=err, ms=cuda_ms(torch, walk, 3),
+        plain_ms=cuda_ms(torch, walk_plain, 1),
+        # as walk_fix8: stream words and LUTs read, 12 record bytes a
+        # recorded step and 16 bytes a lane written; ~30 ops a step
+        bound=bound(4 * words.numel() + 4 * lut32.numel() +
+                    12 * steps_sum + 16 * Bd * nc, 30 * steps_sum),
+        shape=[Bd, nc], step_rows=PK.ST8, passes=g[6],
+        recorded_steps=steps_sum, max_lane_steps=int(g[1].max()),
+        walk8_overflow_images=n_ovf)}
+
+    records, e_fin, out0, steps, _, _ = W.walk_offsets(
+        PK.walk_fix, st_d, lut32, p0_d, zl_d, n_chunks=nc)
+    k8 = W.trim_steps(int(steps), PK.ST8)
+    check(k8 > 8 * W.MAXIT, f"PK=1 trim {k8} within walk8's rows")
+    kw = dict(k8=k8, h=H, bpl=W_ * Cc, c=Cc)
+    fin_args = (*records, e_fin, out0)
+    g5 = PK.finalize_records(*fin_args, **kw)
+    w5 = PK.finalize_records_plain(*fin_args, **kw)
+    for a, b, what in zip(g5, w5, ("meta", "metb", "chk")):
+        check(torch.equal(a, b), f"B9 {what} differs from plain")
+    read_rows = int(torch.clamp(records[3], max=k8).sum())
+    out_rows = Bd * k8 * nc
+    res["finalize_records"] = dict(
+        max_abs_err=max(int((a.to(torch.int64) - b.to(torch.int64))
+                            .abs().max()) for a, b in zip(g5, w5)),
+        ms=cuda_ms(torch, lambda: PK.finalize_records(*fin_args, **kw), 10),
+        plain_ms=cuda_ms(torch, lambda: PK.finalize_records_plain(
+            *fin_args, **kw), 2),
+        # as finalize_records8: 12 bytes a recorded row read, 8 an output
+        # row written, 12 a lane read, 12 a check triple written
+        bound=bound(12 * read_rows + 8 * out_rows + 12 * Bd * nc + 12 * Bd,
+                    60 * read_rows + 4 * out_rows),
+        shape=[Bd, k8, nc], read_rows=read_rows)
+    raster = scatter_packed16(g5[0].reshape(Bd, -1), g5[1].reshape(Bd, -1),
+                              H * W_ * Cc)
+    idx = [i for i, p in enumerate(pngs) if not is_stored(p)]
+    check(np.array_equal(expand(raster, h=H, w=W_, c=Cc).cpu().numpy(),
+                         imgs[idx]), "B8-B9 chain pixels differ from the "
+          "corpus")
+    return kernel_line(res)
 
 
 def decode_spans(torch, T, pngs, Cc, runs=3):
@@ -404,6 +541,30 @@ def profile_decode(torch, T, pngs, Cc):
     return wall, busy, 1 - busy / wall, [[k[:60], v] for k, v in top]
 
 
+def walk_split(torch, pngs):
+    """Host-clock seconds of the two device decodes of one packed batch:
+    the walk8 attempt (decode_kernel8; None when it overflows) and the
+    PK=1 decode, each ending in a synchronise."""
+    from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
+    from fpng_tpu_torch.ops.specdec_tpu import decode_kernel_pk1
+    from fpng_tpu_torch.ops.walk8 import decode_kernel8
+
+    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
+    _, w, h, c, *_ = metas[0]
+    stream, luts, p0, zl = pack_streams(metas)
+    args = [torch.from_numpy(a.astype(t)).to(DEV) for a, t in zip(
+        (stream, luts, p0, zl), (np.uint8, np.int64, np.int64, np.int64))]
+    out = {}
+    for name, fn in (("walk8_s", decode_kernel8),
+                     ("pk1_s", decode_kernel_pk1)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(*args, h=h, w=w, c=c, zlib_len_max=int(zl.max()))
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t
+    return out
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -426,9 +587,11 @@ def main():
     from fpng_tpu_torch import golden
     from fpng_tpu_torch.models.decoder import decode_batch
     from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
+    from fpng_tpu_torch.models import decoder as TD
     from fpng_tpu_torch.ops.checksum import crc_chunks
-    from fpng_tpu_torch.ops.encfuse import encode_bits_fused
+    from fpng_tpu_torch.ops.encfuse import demote_mask, encode_bits_fused
     from fpng_tpu_torch.ops.expand import expand
+    from fpng_tpu_torch.ops.specdec_tpu import finalize_records, walk_fix
     from fpng_tpu_torch.ops.walk8 import finalize_records8, walk_fix8
 
     counters = {"encode_bits_fused": encode_bits_fused,
@@ -437,9 +600,13 @@ def main():
                 "walk_fix8": walk_fix8,
                 "finalize_records8": finalize_records8,
                 "scatter_packed16": scatter_packed16,
-                "expand": expand}
+                "expand": expand,
+                "demote_mask": demote_mask,
+                "walk_fix": walk_fix,
+                "finalize_records": finalize_records}
     walk8_path = ("encode_bits_fused", "crc32_words_masked_raw", "walk_fix8",
                   "finalize_records8", "scatter_packed16", "expand")
+    pk1_path = ("walk_fix", "finalize_records", "scatter_packed16", "expand")
     chunked_path = ("encode_bits_fused", "crc32_words_masked_raw",
                     "deposit_bits")
 
@@ -448,7 +615,7 @@ def main():
             f.launches = 0
         decode_batch.device_images = decode_batch.host_handoffs = 0
         decode_batch.walk8_overflows = 0
-        decode_batch.paths = {"walk8": 0, "chunked": 0}
+        decode_batch.paths = {"walk8": 0, "pk1": 0, "chunked": 0}
 
     def read():
         return {k: f.launches for k, f in counters.items()}
@@ -465,6 +632,9 @@ def main():
     imgs, tiles = corpus()
     B, H, W, Cc = imgs.shape
     kres = phase_kernels(torch, imgs)
+    mode_imgs = {3: imgs, 4: corpus(c=4)[0]}
+    kres.update(phase_demote(torch, mode_imgs[4]))
+    kres.update(phase_pk1(torch, T, mode_imgs[3]))
 
     # --- 4. main path at the benchmark's headline size: walk8 decode ---------
     reset()
@@ -473,10 +643,13 @@ def main():
     launches = read()
     check(all(launches[k] > 0 for k in walk8_path),
           f"a kernel of the walk8 path never launched: {launches}")
+    check(not any(launches[k] for k in ("demote_mask", "walk_fix",
+                                        "finalize_records", "deposit_bits")),
+          f"a kernel off the headline path launched: {launches}")
     check(sts == [0] * B, "decode statuses")
     check(all(np.array_equal(o, i) for o, i in zip(outs, imgs)),
           "decoded pixels differ from the input")
-    check(decode_batch.paths == {"walk8": 1, "chunked": 0},
+    check(decode_batch.paths == {"walk8": 1, "pk1": 0, "chunked": 0},
           f"headline decode paths {decode_batch.paths}")
     check(decode_batch.host_handoffs == 0 and
           decode_batch.walk8_overflows == 0, "headline hand-offs")
@@ -546,7 +719,7 @@ def main():
     check(bs == [0, 0] and all(np.array_equal(o, i) for o, i in zip(bo, big)),
           "4K round trip")
     check(all(zlib_check(p, i) for p, i in zip(bp, big)), "4K zlib check")
-    check(decode_batch.paths == {"walk8": 2, "chunked": 0},
+    check(decode_batch.paths == {"walk8": 2, "pk1": 0, "chunked": 0},
           f"4K decode paths {decode_batch.paths}")
     check(decode_batch.device_images == 4, "4K images not decoded on device")
     mpix = big.shape[0] * big.shape[1] * big.shape[2] / 1e6
@@ -558,23 +731,66 @@ def main():
          host_handoffs=decode_batch.host_handoffs,
          bytes=[len(p) for p in bp])
 
-    # --- 6. chunked decode (reduced depth) and the overflow chain -----------
-    small_b = imgs[:32]
-    os.environ["FPNG_TPU_WALK8"] = "0"
-    reset()
-    cp = T.encode_batch(small_b, device=DEV)
-    t = time.perf_counter()
-    cs, co = T.decode_batch(cp, Cc, device=DEV)
-    chunked_s = time.perf_counter() - t
-    chunked_launches = read()
-    del os.environ["FPNG_TPU_WALK8"]
-    check(all(chunked_launches[k] > 0 for k in chunked_path),
-          f"a kernel of the chunked path never launched: {chunked_launches}")
-    check(decode_batch.paths == {"walk8": 0, "chunked": 1},
-          f"chunked decode paths {decode_batch.paths}")
-    check(cs == [0] * len(small_b) and all(np.array_equal(o, i)
-                                 for o, i in zip(co, small_b)),
-          "chunked round trip")
+    # --- modes: 24 bpp 2-pass, 32 bpp 1-pass and 2-pass at full size --------
+    mode_launches = {}
+    for name, c, two_pass in MODES:
+        mimgs = mode_imgs[c]
+        flags = T.FPNG_ENCODE_SLOWER if two_pass else 0
+        reset()
+        mp = T.encode_batch(mimgs, flags, device=DEV)
+        ms, mo = T.decode_batch(mp, c, device=DEV)
+        ml = mode_launches[name] = read()
+        paths = dict(decode_batch.paths)
+        ovf, hand = decode_batch.walk8_overflows, decode_batch.host_handoffs
+        check(ms == [0] * len(mimgs) and all(
+            np.array_equal(o, i) for o, i in zip(mo, mimgs)),
+            f"{name} round trip")
+        check((ml["demote_mask"] > 0) == (c == 4 and not two_pass),
+              f"{name}: B7 launches {ml['demote_mask']}")
+        check(paths["chunked"] == 0 and hand == 0,
+              f"{name} left the walk paths: {paths}, {hand} hand-offs")
+        check(paths["pk1"] == ovf and paths["walk8"] + ovf == 1,
+              f"{name} paths {paths} against {ovf} walk8 overflows")
+        check(ovf == 0 or all(ml[k] > 0 for k in pk1_path),
+              f"{name}: a kernel of the PK=1 path never launched: {ml}")
+        for png, img in zip(mp, mimgs):
+            check(zlib_check(png, img), f"{name} zlib reconstruction")
+        distinct = {}
+        for png, img in zip(mp, mimgs):
+            if png not in distinct:
+                gs, gi, *_ = golden.decode_memory(png, c)
+                check(gs == 0 and np.array_equal(gi, img),
+                      f"{name} golden decode")
+                distinct[png] = True
+        check(T.encode_batch(mimgs[:8], flags, device="cpu") == mp[:8],
+              f"{name}: card PNG bytes differ from the port's CPU run")
+        cs_, co_ = T.decode_batch(mp[:8], c, device="cpu")
+        check(cs_ == ms[:8] and all(np.array_equal(a, b)
+                                   for a, b in zip(co_, mo[:8])),
+              f"{name}: card pixels differ from the port's CPU run")
+        enc_s, dec_s = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            p2 = T.encode_batch(mimgs, flags, device=DEV)
+            enc_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            s2, _ = T.decode_batch(p2, c, device=DEV)
+            dec_s.append(time.perf_counter() - t)
+            check(p2 == mp and s2 == ms, f"{name} steady-state runs differ")
+        span_runs = decode_spans(torch, T, mp, c)
+        stages = {k: float(np.median([r[k] for r in span_runs]))
+                  for k in span_runs[0]}
+        mpix = np.prod(mimgs.shape[:3]) / 1e6
+        line("mode", name=name, batch=list(mimgs.shape),
+             encode_mpix_s=mpix / min(enc_s), decode_mpix_s=mpix / min(dec_s),
+             encode_s=enc_s, decode_s=dec_s,
+             decode_path="pk1" if ovf else "walk8", paths=paths,
+             walk8_overflows=ovf, host_handoffs=hand,
+             stored_fallbacks=sum(map(is_stored, mp)),
+             golden_checked=len(distinct), bytes=sum(map(len, mp)),
+             launches=ml, stages_median=stages, **walk_split(torch, mp))
+
+    # --- 6. walk8 -> PK=1, FPNG_TPU_WALK8=0, and the chunked tier -----------
     ovf_img = np.random.default_rng(0).integers(0, 2, (200, 256, 3)) \
         .astype(np.uint8)
     ovf_png = golden.encode_image_to_memory(ovf_img, 256, 200, 3,
@@ -583,12 +799,53 @@ def main():
     os_, oo = T.decode_batch([ovf_png], 3, device=DEV)
     check(os_ == [0] and np.array_equal(oo[0], ovf_img), "overflow image")
     check(decode_batch.walk8_overflows == 1 and
-          decode_batch.paths == {"walk8": 0, "chunked": 1} and
-          decode_batch.host_handoffs == 1,
-          "overflow image did not go walk8 -> chunked -> host")
+          decode_batch.paths == {"walk8": 0, "pk1": 1, "chunked": 0} and
+          decode_batch.host_handoffs == 0 and walk_fix.launches > 0 and
+          finalize_records.launches == 1,
+          "overflow image did not go walk8 -> PK=1 on the device")
+    small_b = imgs[:32]
+    cp = T.encode_batch(small_b, device=DEV)
+    os.environ["FPNG_TPU_WALK8"] = "0"
+    reset()
+    ps, po = T.decode_batch(cp, Cc, device=DEV)
+    pk1_launches = read()
+    del os.environ["FPNG_TPU_WALK8"]
+    check(ps == [0] * len(small_b) and all(
+        np.array_equal(o, i) for o, i in zip(po, small_b)),
+        "FPNG_TPU_WALK8=0 round trip")
+    check(decode_batch.paths == {"walk8": 0, "pk1": 1, "chunked": 0} and
+          pk1_launches["walk_fix8"] == 0 and
+          all(pk1_launches[k] > 0 for k in pk1_path),
+          f"FPNG_TPU_WALK8=0 did not take PK=1: {pk1_launches}")
+    # the chunked tier takes rasters past the walk gate (ops/walk8.fits);
+    # the gate refuses these as it refuses a raster past 2^27 slots
+    walk_gate = TD.fits
+    TD.fits = lambda h, bpl: False
+    try:
+        reset()
+        t = time.perf_counter()
+        cs, co = T.decode_batch(cp, Cc, device=DEV)
+        chunked_s = time.perf_counter() - t
+        chunked_launches = read()
+        check(decode_batch.paths == {"walk8": 0, "pk1": 0, "chunked": 1},
+              f"chunked decode paths {decode_batch.paths}")
+        reset()
+        os_, oo = T.decode_batch([ovf_png], 3, device=DEV)
+        chain = dict(decode_batch.paths, host=decode_batch.host_handoffs)
+    finally:
+        TD.fits = walk_gate
+    check(chunked_launches["deposit_bits"] > 0,
+          f"B10 never launched on the chunked decode: {chunked_launches}")
+    check(cs == [0] * len(small_b) and all(
+        np.array_equal(o, i) for o, i in zip(co, small_b)),
+        "chunked round trip")
+    check(os_ == [0] and np.array_equal(oo[0], ovf_img) and
+          chain == {"walk8": 0, "pk1": 0, "chunked": 1, "host": 1},
+          f"overflow image past the gate did not go chunked -> host: {chain}")
     line("chunked", batch=list(small_b.shape), decode_s=chunked_s,
-         launches=chunked_launches, overflow_chain=["walk8", "chunked",
-                                                    "host"])
+         launches=chunked_launches, pk1_launches=pk1_launches,
+         overflow_chain=["walk8", "pk1"],
+         past_gate_chain=["chunked", "host"])
 
     # --- 7. corrupted streams -----------------------------------------------
     rng = np.random.default_rng(11)
@@ -623,9 +880,13 @@ def main():
     check(not [m for m in sys.modules
                if m == "fpng_tpu" or m.startswith("fpng_tpu.")],
           "fpng_tpu was imported")
-    path_launches = dict(launches, deposit_bits=chunked_launches[
-        "deposit_bits"])
-    line("launches", walk8_path=launches, chunked_path=chunked_launches)
+    path_launches = dict(
+        launches, deposit_bits=chunked_launches["deposit_bits"],
+        demote_mask=mode_launches["real4_1pass"]["demote_mask"],
+        walk_fix=mode_launches["real3_2pass"]["walk_fix"],
+        finalize_records=mode_launches["real3_2pass"]["finalize_records"])
+    line("launches", walk8_path=launches, chunked_path=chunked_launches,
+         pk1_path=pk1_launches, modes=mode_launches)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "fpng_scatter_packed16": [_P, _P, _I, _I, _I, _P, _P],
     # raster, B, h, w, c, out, stream
     "fpng_expand": [_P, _I, _I, _I, _I, _P, _P],
+    # deltas, len_sym, len_extra, cand, tbl, B, HW, out, stream
+    "fpng_demote": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _lib = None

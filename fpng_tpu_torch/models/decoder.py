@@ -2,23 +2,27 @@
 
 The host does the O(1)-per-image work (container chunk walk, dynamic
 header parse and 12-bit LUT build, fpng.cpp:1954-2105); the device does
-everything O(pixels).  dispatch_kernel mirrors fpng_tpu's chain:
+everything O(pixels).  dispatch_kernel is fpng_tpu's chain without its
+`except` degrade:
 
-  walk8 (ops/walk8.py, kernels B3-B6)      the default
-  -> chunked decode (ops/specdec.py, B10)  when a walk8 lane overflows its
-                                           step capacity (fpng_tpu takes
-                                           its PK=1 walk here, not ported
-                                           yet)
-  -> host decoder (golden.decode_zlib)     per image, when the chunked
-                                           walk's step bound overflows too
+  within the walk gate (ops/walk8.fits):
+    walk8 (ops/walk8.py, kernels B3-B6)          the default
+    -> PK=1 (ops/specdec_tpu.py, B8, B9, B5, B6) when a walk8 lane
+                                                 overflows its step
+                                                 capacity, or straight away
+                                                 with FPNG_TPU_WALK8=0
+  past the gate:
+    chunked decode (ops/specdec.py, B10)
+    -> host decoder (golden.decode_zlib)         per image, when the chunked
+                                                 walk's step bound overflows
 
 Any constraint violation flips the image's ok flag and the API reports
 FPNG_DECODE_NOT_FPNG, as the reference does.  Stored-block files decode on
 the host (fpng.cpp:2107-2207).  decode_batch counts images decoded on the
 device (`device_images`), images handed to the host decoder
-(`host_handoffs`), device batches whose walk8 overflowed
-(`walk8_overflows`) and device batches by the path that decoded them
-(`paths`).  Setting `decode_batch.spans` to a dict turns on per-stage
+(`host_handoffs`, only from the chunked tier), device batches whose walk8
+overflowed (`walk8_overflows`) and device batches by the path that decoded
+them (`paths`).  Setting `decode_batch.spans` to a dict turns on per-stage
 host-clock spans (off by default; see _span).  A kernel that fails to
 build or launch raises.
 """
@@ -34,6 +38,7 @@ import torch
 
 from .. import constants as C
 from ..ops.specdec import decode_kernel, pack_lut, plan_chunks
+from ..ops.specdec_tpu import decode_kernel_pk1
 from ..ops.walk8 import decode_kernel8, fits
 from ..tables import lut_to_torch
 
@@ -133,7 +138,7 @@ def decode_batch(pngs: list[bytes], desired_channels: int = 4,
 decode_batch.device_images = 0
 decode_batch.host_handoffs = 0
 decode_batch.walk8_overflows = 0
-decode_batch.paths = {"walk8": 0, "chunked": 0}
+decode_batch.paths = {"walk8": 0, "pk1": 0, "chunked": 0}
 decode_batch.spans = None
 
 
@@ -158,26 +163,31 @@ def _span(name: str, device):
 
 
 def _use_walk8() -> bool:
-    """walk8 is the default decode; FPNG_TPU_WALK8=0 selects the chunked
-    decode, the same switch as fpng_tpu's."""
+    """walk8 is the default decode; FPNG_TPU_WALK8=0 selects the PK=1 walk,
+    the same switch as fpng_tpu's."""
     return os.environ.get("FPNG_TPU_WALK8", "1") != "0"
 
 
 def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
-    """The decode dispatch - walk8 -> chunked - over already-packed device
-    inputs (pack_streams), zmax the longest zlib_len.
+    """The decode dispatch - walk8 -> PK=1 within the walk gate, the
+    chunked decode past it - over already-packed device inputs
+    (pack_streams), zmax the longest zlib_len.
 
     Returns (imgs, ok, overflow, path) where path names the decode that
-    ran ("walk8" or "chunked") and overflow flags the images the chunked
-    walk could not finish (the caller decodes them on the host).
+    ran ("walk8", "pk1" or "chunked") and overflow flags the images the
+    chunked walk could not finish (the caller decodes them on the host).
     """
-    if _use_walk8() and fits(h, w * c):
-        out = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
-                             zlib_len_max=zmax)
-        if out is not None:
-            imgs, ok = out
-            return imgs, ok, torch.zeros_like(ok), "walk8"
-        decode_batch.walk8_overflows += 1
+    if fits(h, w * c):
+        if _use_walk8():
+            out = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
+                                 zlib_len_max=zmax)
+            if out is not None:
+                imgs, ok = out
+                return imgs, ok, torch.zeros_like(ok), "walk8"
+            decode_batch.walk8_overflows += 1
+        imgs, ok = decode_kernel_pk1(sj, lj, pj, zj, h=h, w=w, c=c,
+                                     zlib_len_max=zmax)
+        return imgs, ok, torch.zeros_like(ok), "pk1"
     s_bits, n_chunks, max_steps = plan_chunks(sj.shape[1])
     imgs, ok, overflow = decode_kernel(
         sj, lj, pj, zj, h=h, w=w, c=c, n_chunks=n_chunks,

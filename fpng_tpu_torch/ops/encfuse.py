@@ -14,6 +14,8 @@ One packed descriptor per unit of the token stream, plus the image's
 
 encode_bits_fused wraps kernel B1 (csrc/encfuse.cu); encode_bits_plain is
 its plain version, the materialize -> offsets -> scatter chain.
+demote_mask wraps kernel B7 (csrc/demote.cu), the 32 bpp 1-pass cost
+check; demote_mask_plain is its plain version.
 """
 
 from __future__ import annotations
@@ -117,3 +119,61 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
 
 
 encode_bits_fused.launches = 0
+
+
+def demote_mask_plain(deltas: torch.Tensor, len_sym: torch.Tensor,
+                      len_extra: torch.Tensor, cand: torch.Tensor,
+                      tbl: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of kernel B7 (same contract as demote_mask):
+    fpng_tpu's XLA formula (fpng_tpu/models/encoder.py:111-115) on the
+    code sizes packed in tbl."""
+    B, H, W, Cc = deltas.shape
+    sizes = tbl.reshape(B, -1).to(torch.int64) >> 16
+    lit_sz = torch.gather(sizes, 1, deltas.reshape(B, -1).to(torch.int64))
+    # len_sym is read only where cand is set
+    sym = torch.where(cand, len_sym, 0).reshape(B, -1).to(torch.int64)
+    msz = torch.gather(sizes, 1, sym).reshape(B, H, W)
+    return cand & (msz + len_extra + 1 >
+                   lit_sz.reshape(B, H, W, Cc).sum(dim=-1))
+
+
+def demote_mask(deltas: torch.Tensor, len_sym: torch.Tensor,
+                len_extra: torch.Tensor, cand: torch.Tensor,
+                tbl: torch.Tensor) -> torch.Tensor:
+    """The 32 bpp 1-pass cost check (fpng.cpp:1520-1528): the wrapper of
+    kernel B7 (csrc/demote.cu), which replaces fpng_tpu's demote_mask_tpu.
+
+    deltas (B, H, W, 4) uint8 filtered pixels; len_sym/len_extra (B, H, W)
+    int32 length symbol and extra-bit count of each match start; cand
+    (B, H, W) bool, the 1-pixel match starts; tbl (B, 8, 128) int32 from
+    pack_table.  Returns (B, H, W) bool: the candidates whose match costs
+    strictly more bits (size(len_sym) + extra + 1 distance bit) than their
+    four literals.  A CPU tensor takes demote_mask_plain; a CUDA tensor
+    launches the kernel (counted in `demote_mask.launches`) or raises.
+    """
+    if deltas.device.type == "cpu":
+        return demote_mask_plain(deltas, len_sym, len_extra, cand, tbl)
+    B, H, W, Cc = deltas.shape
+    K.require_cuda("demote_mask", len_sym, len_extra, tbl)
+    dev = len_sym.device
+    for t, dt in ((deltas, torch.uint8), (cand, torch.bool)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError("demote_mask: deltas must be contiguous uint8 "
+                             "and cand contiguous bool, on the same device")
+    if Cc != 4 or tbl.shape != (B, 8, 128) or \
+            any(t.shape != (B, H, W) for t in (len_sym, len_extra, cand)):
+        raise ValueError("demote_mask: deltas (B, H, W, 4), len_sym, "
+                         "len_extra and cand (B, H, W), tbl (B, 8, 128)")
+    if H * W >= 1 << 31 or deltas.data_ptr() % 4:
+        raise ValueError("demote_mask: more pixels than int32 indexes, or "
+                         "deltas not aligned to 4 bytes")
+    out = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+    K.check(K.lib().fpng_demote(
+        deltas.data_ptr(), len_sym.data_ptr(), len_extra.data_ptr(),
+        cand.data_ptr(), tbl.data_ptr(), B, H * W, out.data_ptr(),
+        K.stream_ptr(dev)), "fpng_demote")
+    demote_mask.launches += 1
+    return out
+
+
+demote_mask.launches = 0

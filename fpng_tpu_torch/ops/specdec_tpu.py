@@ -1,0 +1,95 @@
+"""PK=1 decode: the worst-case walk (counterpart of the walk path of
+fpng_tpu/ops/specdec_tpu.py).
+
+fpng_tpu decodes a batch on its PK=1 walk when a walk8 lane overflows its
+96 step rows.  The two walks compute the same thing and differ only in
+capacity: PK=1 gives every 512-bit chunk lane ST8 = 512 + 24 step rows,
+enough for a token of one bit at every step.  What else separates them on
+the TPU (PK=8 sublane packing, lpi groups run in grid order, plan_tpu's
+lane buckets, 23-bit narrow records, bpl_pad row padding, the k8 cache) is
+TPU layout.  So here:
+
+  B8 walk_fix          kernel B3's walk and fixpoint (csrc/walk8.cu) at
+                       ST = ST8, over n_chunks(zlib_len_max) lanes
+  epilogue             ops/walk8.walk_offsets
+  B9 finalize_records  kernel B4's finalize (csrc/finalize8.cu) over the
+                       trimmed k8 <= ST8 rows
+  B5, B6               as walk8 (ops/walk8.finish_decode)
+
+Each wrapper keeps its own launch counter, apart from walk8's, so a run
+shows which walk it took.  A CPU tensor takes the plain versions (walk8's
+at ST8 rows); a CUDA tensor launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+from . import walk8 as W
+
+ST8 = W.S + 24  # step rows a lane: one step a bit, plus the token tail
+
+
+def walk_fix_plain(words, lut, p0, zl8, *, n_chunks: int):
+    """Plain torch version of kernel B8: walk_fix8_plain at ST8 rows."""
+    return W.walk_fix8_plain(words, lut, p0, zl8, n_chunks=n_chunks,
+                             maxit=ST8 // 8)
+
+
+def walk_fix(words, lut, p0, zl8, *, n_chunks: int):
+    """Kernel B8: the PK=1 walk + entry fixpoint, with walk_fix8's
+    contract at ST8 step rows a lane.  A lane of a valid stream never
+    fills them, so the overflow flag it returns is not read.
+
+    A CUDA tensor launches csrc/walk8.cu once per pass; `walk_fix.launches`
+    counts the launches.
+    """
+    if words.device.type == "cpu":
+        return walk_fix_plain(words, lut, p0, zl8, n_chunks=n_chunks)
+    out = W.walk_cuda("walk_fix", words, lut, p0, zl8, n_chunks=n_chunks,
+                      ST=ST8)
+    walk_fix.launches += out[6]
+    return out
+
+
+walk_fix.launches = 0
+
+
+# the plain torch version of kernel B9 is B4's, which takes any k8
+finalize_records_plain = W.finalize_records8_plain
+
+
+def finalize_records(posr, raw0, raw1, nst, e_fin, out0, *, k8: int, h: int,
+                     bpl: int, c: int):
+    """Kernel B9: PK=1 walk records -> deposit records + constraint checks,
+    with finalize_records8's contract and records, for k8 <= ST8.
+    fpng_tpu's _finalize_records writes narrow records into bpl_pad rows;
+    the raster they deposit and the per-image check triple are the same.
+
+    A CUDA tensor launches csrc/finalize8.cu; `finalize_records.launches`
+    counts the launches.
+    """
+    if posr.device.type == "cpu":
+        return finalize_records_plain(posr, raw0, raw1, nst, e_fin, out0,
+                                      k8=k8, h=h, bpl=bpl, c=c)
+    out = W.finalize_cuda("finalize_records", posr, raw0, raw1, nst, e_fin,
+                          out0, k8=k8, h=h, bpl=bpl, c=c)
+    finalize_records.launches += 1
+    return out
+
+
+finalize_records.launches = 0
+
+
+def decode_kernel_pk1(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
+                      zlib_len_max: int):
+    """PK=1 decode of B same-shape fpng dynamic-block streams.
+
+    Same inputs as ops/walk8.decode_kernel8.  Returns (imgs (B, h, w, c)
+    uint8, ok (B,) bool); it has no capacity overflow.  One device->host
+    readback (the step trim) besides the fixpoint's changed flags.
+    """
+    records, e_fin, out0, steps, _, _ = W.walk_offsets(
+        walk_fix, stream, lut, p0, zlib_len,
+        n_chunks=W.n_chunks(zlib_len_max))
+    k8 = W.trim_steps(int(steps), ST8)
+    return W.finish_decode(finalize_records, records, e_fin, out0, zlib_len,
+                           k8=k8, h=h, w=w, c=c)

@@ -29,7 +29,8 @@ chunks and one lane walks each chunk:
 Each lane has 8 * maxit step slots (ST = 96).  A stream that needs more
 steps than that in one chunk (under ~5.3 bits a step) sets the overflow
 flag, and decode_kernel8 returns None: the caller decodes the batch on the
-chunked path (ops/specdec.py) instead.
+PK=1 walk (ops/specdec_tpu.py), which runs the same kernels at worst-case
+capacity through walk_cuda, walk_offsets, finalize_cuda and finish_decode.
 
 Records are step-major, (B, ST, NC): lane c's step j sits at [b, j, c], so
 the lanes of a warp read and write neighbouring words.  The Pallas
@@ -43,6 +44,8 @@ tensor, or raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -63,9 +66,9 @@ def fits(h: int, bpl: int) -> bool:
     256.  The port's own raster is unpadded, and its kernels need only
     h * (bpl + 1) < 2^30 (B4's int32 output offsets).  The tighter gate
     stays until a card run holds a larger raster (A12): past it the port
-    has run nothing, and its overflow tier, the chunked decode, stops at
-    2^27 slots too.  decode dispatch and finalize_records8 both take it
-    from here."""
+    has run nothing on a walk, and the chunked decode that takes those
+    rasters stops at 2^27 slots too.  The decode dispatch and the walk
+    finalizes (B4, B9) all take it from here."""
     bpl_pad = bpl if bpl < 256 else -(-bpl // 256) * 256
     return -(-h // 8) * 8 * bpl_pad < 1 << 27
 
@@ -197,13 +200,25 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
     if words.device.type == "cpu":
         return walk_fix8_plain(words, lut, p0, zl8, n_chunks=n_chunks,
                                maxit=maxit)
-    K.require_cuda("walk_fix8", words, lut, p0, zl8)
+    out = walk_cuda("walk_fix8", words, lut, p0, zl8, n_chunks=n_chunks,
+                    ST=8 * maxit)
+    walk_fix8.launches += out[6]
+    return out
+
+
+walk_fix8.launches = 0
+
+
+def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int):
+    """Run csrc/walk8.cu's walk and fixpoint with ST step rows a lane: one
+    launch per pass, so passes = launches (walk_fix8's contract)."""
+    K.require_cuda(name, words, lut, p0, zl8)
     B, nw = words.shape
-    NC, ST = n_chunks, 8 * maxit
+    NC = n_chunks
     if lut.shape != (B, 4096) or p0.shape != (B,) or zl8.shape != (B,):
-        raise ValueError("walk_fix8: lut (B, 4096), p0 and zl8 (B,)")
+        raise ValueError(f"{name}: lut (B, 4096), p0 and zl8 (B,)")
     if (NC + 1) * S >= 1 << 31:
-        raise ValueError("walk_fix8: stream too long for int32 positions")
+        raise ValueError(f"{name}: stream too long for int32 positions")
     dev = words.device
     posr, raw0, raw1 = (torch.empty((B, ST, NC), dtype=torch.int32,
                                     device=dev) for _ in range(3))
@@ -219,7 +234,6 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
             ex_in.data_ptr(), ex_out.data_ptr(), nst.data_ptr(),
             ovf.data_ptr(), posr.data_ptr(), raw0.data_ptr(),
             raw1.data_ptr(), changed.data_ptr(), sp), "fpng_walk8_pass")
-        walk_fix8.launches += 1
 
     launch(1, ex_a, ex_a)
     passes = 1
@@ -231,9 +245,6 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
         if not int(changed.item()):
             break
     return ent, nst, ovf != 0, posr, raw0, raw1, passes
-
-
-walk_fix8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +264,20 @@ def decode_walk8(stream, lut, p0, zlib_len, *, n_chunks: int,
     converged entry), steps (scalar tensor) the highest step any lane
     needs, ovf (B,) bool per-image capacity overflow.
     """
+    return walk_offsets(functools.partial(walk_fix8, maxit=maxit), stream,
+                        lut, p0, zlib_len, n_chunks=n_chunks)
+
+
+def walk_offsets(walk, stream, lut, p0, zlib_len, *, n_chunks: int):
+    """decode_walk8's contract with the walk `walk` (walk_fix8, or the
+    PK=1 walk of ops/specdec_tpu.py): the walk, then the epilogue in torch
+    ops on either device."""
     dev = stream.device
     zl8 = zlib_len.to(torch.int64) * 8
     i32 = torch.int32
-    e_fin, nst, ovf_l, posr, raw0, raw1, passes = walk_fix8(
+    e_fin, nst, ovf_l, posr, raw0, raw1, passes = walk(
         stream_words(stream), lut.to(i32).contiguous(), p0.to(i32),
-        zl8.to(i32), n_chunks=n_chunks, maxit=maxit)
+        zl8.to(i32), n_chunks=n_chunks)
     ST = posr.shape[1]
     _, live, _ = _lane_geometry(zl8, n_chunks)
     stepi = torch.arange(ST, dtype=i32, device=dev)[None, :, None]
@@ -380,11 +399,23 @@ def finalize_records8(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
     if posr.device.type == "cpu":
         return finalize_records8_plain(posr, raw0, raw1, nst, e_fin, out0,
                                        k8=k8, h=h, bpl=bpl, c=c)
-    K.require_cuda("finalize_records8", posr, raw0, raw1, nst, e_fin, out0)
+    out = finalize_cuda("finalize_records8", posr, raw0, raw1, nst, e_fin,
+                        out0, k8=k8, h=h, bpl=bpl, c=c)
+    finalize_records8.launches += 1
+    return out
+
+
+finalize_records8.launches = 0
+
+
+def finalize_cuda(name: str, posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
+                  h: int, bpl: int, c: int):
+    """One launch of csrc/finalize8.cu (finalize_records8's contract)."""
+    K.require_cuda(name, posr, raw0, raw1, nst, e_fin, out0)
     B, ST, NC = posr.shape
     if not 0 < k8 <= ST or not fits(h, bpl):
-        raise ValueError("finalize_records8: bad k8, or a raster past the "
-                         "walk path's gate")
+        raise ValueError(f"{name}: bad k8, or a raster past the walk "
+                         "path's gate")
     dev = posr.device
     meta = torch.empty((B, k8, NC), dtype=torch.int32, device=dev)
     metb = torch.empty_like(meta)
@@ -395,11 +426,7 @@ def finalize_records8(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
         nst.data_ptr(), e_fin.data_ptr(), out0.data_ptr(), B, NC, k8, h, bpl,
         c, meta.data_ptr(), metb.data_ptr(), chk.data_ptr(),
         K.stream_ptr(dev)), "fpng_finalize8")
-    finalize_records8.launches += 1
     return meta, metb, chk
-
-
-finalize_records8.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -417,8 +444,6 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
     device->host readback (steps and overflow) besides the fixpoint's
     changed flags.
     """
-    B = stream.shape[0]
-    bpl = w * c
     records, e_fin, out0, steps, ovf, _ = decode_walk8(
         stream, lut, p0, zlib_len, n_chunks=n_chunks(zlib_len_max),
         maxit=maxit)
@@ -426,10 +451,21 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
                       ovf.to(torch.int32)]).cpu()
     if bool(diag[1:].any()):
         return None
-    posr, raw0, raw1, nst = records
-    k8 = trim_steps(int(diag[0]), posr.shape[1])
-    meta, metb, chk = finalize_records8(posr, raw0, raw1, nst, e_fin, out0,
-                                        k8=k8, h=h, bpl=bpl, c=c)
+    k8 = trim_steps(int(diag[0]), records[0].shape[1])
+    return finish_decode(finalize_records8, records, e_fin, out0, zlib_len,
+                         k8=k8, h=h, w=w, c=c)
+
+
+def finish_decode(finalize, records, e_fin, out0, zlib_len, *, k8: int,
+                  h: int, w: int, c: int):
+    """Stage 2 with the finalize `finalize` (finalize_records8, or the PK=1
+    finalize_records): deposit records and checks over the first k8 rows,
+    the ok flags, then B5 and B6.  Returns (imgs (B, h, w, c) uint8, ok
+    (B,) bool)."""
+    B = records[0].shape[0]
+    bpl = w * c
+    meta, metb, chk = finalize(*records, e_fin, out0, k8=k8, h=h, bpl=bpl,
+                               c=c)
     chk = chk.to(torch.int64)
     eob_end = chk[:, 1]
     ok = (chk[:, 0] == 0) & (eob_end != INF) & (eob_end <= chk[:, 2]) & \

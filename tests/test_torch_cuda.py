@@ -16,14 +16,18 @@ import torch
 import fpng_tpu_torch as T
 from fpng_tpu_torch import golden
 from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
-from fpng_tpu_torch.models.encoder import _budget, _num_words, build_desc
+from fpng_tpu_torch.models.encoder import (_budget, _num_words, build_desc,
+                                           tokens)
+from fpng_tpu_torch.ops import specdec_tpu as PK
 from fpng_tpu_torch.ops import walk8 as W
 from fpng_tpu_torch.ops.assemble import idat_crc_words, raw_idat_prefix
 from fpng_tpu_torch.ops.bitpack import (deposit_bits, scatter_bits,
                                         scatter_packed16,
                                         scatter_packed16_plain)
 from fpng_tpu_torch.ops.checksum import crc_chunks, crc_chunks_plain
-from fpng_tpu_torch.ops.encfuse import encode_bits_fused, encode_bits_plain
+from fpng_tpu_torch.ops.encfuse import (demote_mask, demote_mask_plain,
+                                        encode_bits_fused, encode_bits_plain,
+                                        pack_table)
 from fpng_tpu_torch.ops.expand import expand, expand_plain
 from fpng_tpu_torch.tables import one_pass_state
 from fpng_tpu_torch.train import synthetic_corpus
@@ -264,3 +268,113 @@ def test_decode_batch_takes_walk8_on_card():
     assert sts == [0] * len(imgs)
     assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
     assert all(f.launches > n for f, n in zip(counters, before))
+
+
+@pytest.mark.parametrize("shape", [(3, 40, 100), (2, 1, 1), (1, 300, 517)])
+def test_demote_mask_matches_plain(shape):
+    """B7 on 4-channel images over a 2-value alphabet (many 1-pixel match
+    starts), with the 1-pass tables, random code sizes and a table where
+    every candidate ties (fpng's strict > keeps those as matches)."""
+    B, H, W_ = shape
+    rng = np.random.default_rng(H * W_)
+    imgs = (rng.integers(0, 2, (B, H, W_, 4)) * 37).astype(np.uint8)
+    st = one_pass_state(4, "cuda")
+    codes, sizes = st.codes.expand(B, -1), st.sizes.expand(B, -1).clone()
+    sizes[0] = torch.from_numpy(rng.integers(1, 13, 288)).cuda()
+    if B > 1:  # every 1-pixel match ties with its literals: 7 + 1 = 4 x 2
+        sizes[1] = 2
+        sizes[1, 258] = 7
+    deltas, _, mstart, mlen, _, ls, le = tokens(torch.from_numpy(imgs).cuda(),
+                                                4)
+    args = (deltas, ls, le, mstart & (mlen == 1), pack_table(codes, sizes))
+    n0 = demote_mask.launches
+    got = demote_mask(*args)
+    torch.cuda.synchronize()
+    assert demote_mask.launches == n0 + 1
+    assert torch.equal(got.cpu(), demote_mask_plain(*(a.cpu() for a in args)))
+
+
+def _overflowing_batch():
+    """Two 2-pass 32 x 32 x 4 tiles; the first overflows walk8."""
+    tiles = list(synthetic_corpus(4, size=32))
+    imgs = np.stack([tiles[6], tiles[9]])
+    pngs = [golden.encode_image_to_memory(i, 32, 32, 4, T.FPNG_ENCODE_SLOWER)
+            for i in imgs]
+    metas = [_parse_one(p) for p in pngs]
+    return imgs, pngs, [torch.from_numpy(a.astype(t)) for a, t in zip(
+        pack_streams(metas), (np.uint8, np.int32, np.int32, np.int32))]
+
+
+def test_pk1_kernels_match_plain():
+    imgs, _, (stream, luts, p0, zl) = _overflowing_batch()
+    B, h, w, c = imgs.shape
+    nc = W.n_chunks(int(zl.max()))
+    assert W.decode_kernel8(stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda(),
+                            h=h, w=w, c=c, zlib_len_max=int(zl.max())) is None
+    words, zl8 = W.stream_words(stream), zl * 8
+    n0 = PK.walk_fix.launches
+    got = PK.walk_fix(words.cuda(), luts.cuda(), p0.cuda(), zl8.cuda(),
+                      n_chunks=nc)
+    torch.cuda.synchronize()
+    want = PK.walk_fix_plain(words, luts, p0, zl8, n_chunks=nc)
+    assert got[6] == want[6] > 1 and PK.walk_fix.launches == n0 + got[6]
+    assert got[3].shape[1] == PK.ST8
+    for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf
+        assert torch.equal(g.cpu(), w_)
+    assert int(want[1].max()) > 8 * W.MAXIT  # deeper than walk8's rows
+    rows = torch.arange(PK.ST8)[None, :, None] < want[1][:, None]
+    for g, w_ in zip(got[3:6], want[3:6]):
+        assert torch.equal(torch.where(rows, g.cpu(), 0),
+                           torch.where(rows, w_, 0))
+
+    e_fin, nst = got[0], got[1]
+    posr, raw0, raw1 = got[3:6]
+    out0 = torch.arange(nc, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, nc).contiguous() * 41
+    n0 = PK.finalize_records.launches
+    for k8 in (8, 112, PK.ST8):
+        kw = dict(k8=k8, h=h, bpl=w * c, c=c)
+        gk = PK.finalize_records(posr, raw0, raw1, nst, e_fin, out0, **kw)
+        wk = PK.finalize_records_plain(posr.cpu(), raw0.cpu(), raw1.cpu(),
+                                       nst.cpu(), e_fin.cpu(), out0.cpu(),
+                                       **kw)
+        for g, w_ in zip(gk, wk):
+            assert torch.equal(g.cpu(), w_)
+    assert PK.finalize_records.launches == n0 + 3
+
+    di, ok = PK.decode_kernel_pk1(stream.cuda(), luts.cuda(), p0.cuda(),
+                                  zl.cuda(), h=h, w=w, c=c,
+                                  zlib_len_max=int(zl.max()))
+    assert bool(ok.all()) and np.array_equal(di.cpu().numpy(), imgs)
+
+
+@pytest.mark.parametrize("c,flags", [(4, 0), (3, T.FPNG_ENCODE_SLOWER),
+                                     (4, T.FPNG_ENCODE_SLOWER)])
+def test_mode_roundtrip_on_card_matches_cpu(rng, c, flags):
+    """32 bpp 1-pass (B7 launches) and 2-pass: the card's bytes equal the
+    CPU run's, and decode_batch gives the images back."""
+    tiles = list(synthetic_corpus(c, size=64))
+    imgs = np.stack([tiles[k] for k in (0, 6, 9, 20)] +
+                    [make_test_image(rng, 64, 64, c, "noise")])
+    n0 = demote_mask.launches
+    gpu = T.encode_batch(imgs, flags, device="cuda")
+    assert demote_mask.launches == n0 + (c == 4 and not flags)
+    assert gpu == T.encode_batch(imgs, flags, device="cpu")
+    sts, outs = T.decode_batch(gpu, c, device="cuda")
+    assert sts == [0] * len(imgs)
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+
+
+def test_walk8_overflow_decodes_on_pk1_on_card():
+    imgs, pngs, _ = _overflowing_batch()
+    from fpng_tpu_torch.models.decoder import decode_batch
+
+    n0, k0 = decode_batch.walk8_overflows, decode_batch.paths["pk1"]
+    b0 = PK.walk_fix.launches, PK.finalize_records.launches
+    sts, outs = T.decode_batch(pngs, 4, device="cuda")
+    assert sts == [0, 0]
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    assert decode_batch.walk8_overflows == n0 + 1
+    assert decode_batch.paths["pk1"] == k0 + 1
+    assert PK.walk_fix.launches > b0[0]
+    assert PK.finalize_records.launches == b0[1] + 1

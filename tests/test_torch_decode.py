@@ -84,7 +84,13 @@ def test_decode_kernel_matches_jax(case):
         assert not ok or np.array_equal(im, img)
 
 
-def test_overflow_hands_off_to_host_and_counts():
+def test_overflow_hands_off_to_host_and_counts(monkeypatch):
+    """The host hand-off comes only from the chunked tier, which takes the
+    rasters past the walk gate: with the gate refusing, the stream that
+    overflows the chunked walk decodes on the host."""
+    from fpng_tpu_torch.models import decoder as TD
+
+    monkeypatch.setattr(TD, "fits", lambda h, bpl: False)
     img = _short_code_image()
     png = golden.encode_image_to_memory(img, 256, 200, 3,
                                         F.FPNG_ENCODE_SLOWER)

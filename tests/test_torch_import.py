@@ -11,12 +11,14 @@ import fpng_tpu_torch as T
 from fpng_tpu import constants as C
 from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
 from fpng_tpu_torch.ops.checksum import crc_chunks
-from fpng_tpu_torch.ops.encfuse import encode_bits_fused
+from fpng_tpu_torch.ops.encfuse import demote_mask, encode_bits_fused
 from fpng_tpu_torch.ops.expand import expand
+from fpng_tpu_torch.ops.specdec_tpu import finalize_records, walk_fix
 from fpng_tpu_torch.ops.walk8 import finalize_records8, walk_fix8
 
 WRAPPERS = (encode_bits_fused, crc_chunks, deposit_bits, walk_fix8,
-            finalize_records8, scatter_packed16, expand)
+            finalize_records8, scatter_packed16, expand, demote_mask,
+            walk_fix, finalize_records)
 
 
 def test_import_leaves_out_jax_and_triton():
@@ -46,27 +48,29 @@ def test_import_leaves_out_jax_and_triton():
     assert int(n) >= 23  # every module of the port was imported
 
 
-def test_cpu_tensors_take_the_plain_versions():
+def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """On CPU tensors the wrappers run their plain versions and never
-    touch the kernel library (there is no nvcc here)."""
+    touch the kernel library (there is no nvcc here): every encode mode,
+    and both walk decodes."""
     from fpng_tpu_torch import kernels
+    from fpng_tpu_torch.models.decoder import decode_batch
 
     before = [f.launches for f in WRAPPERS]
+    paths = dict(decode_batch.paths)
     rng = np.random.default_rng(3)
-    imgs = rng.integers(0, 256, (2, 9, 11, 3), dtype=np.uint8)
-    pngs = T.encode_batch(imgs, 0, device="cpu")
-    sts, outs = T.decode_batch(pngs, 3, device="cpu")
-    assert sts == [0, 0]
-    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    for c, flags, walk8 in ((3, 0, "1"), (4, 0, "1"),
+                            (4, C.FPNG_ENCODE_SLOWER, "0")):
+        monkeypatch.setenv("FPNG_TPU_WALK8", walk8)
+        # few values, so the files compress and reach the walk decodes
+        imgs = rng.integers(0, 4, (2, 9, 11, c), dtype=np.uint8)
+        pngs = T.encode_batch(imgs, flags, device="cpu")
+        sts, outs = T.decode_batch(pngs, c, device="cpu")
+        assert sts == [0, 0]
+        assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    assert decode_batch.paths["walk8"] == paths["walk8"] + 2
+    assert decode_batch.paths["pk1"] == paths["pk1"] + 1
     assert [f.launches for f in WRAPPERS] == before
     assert kernels._lib is None
-
-
-@pytest.mark.parametrize("flags,chans", [(C.FPNG_ENCODE_SLOWER, 3), (0, 4)])
-def test_unported_modes_raise(flags, chans):
-    img = np.zeros((1, 4, 4, chans), np.uint8)
-    with pytest.raises(NotImplementedError):
-        T.encode_batch(img, flags, device="cpu")
 
 
 def test_invalid_input_is_none_or_invalid_arg():

@@ -208,28 +208,61 @@ def _overflowing_rgba():
 
 
 def test_walk8_overflow_falls_to_chunked_decode():
+    """A walk8 overflow now falls to the PK=1 walk (fpng_tpu's chain), not
+    to the chunked decode: the image decodes on the device path, counted
+    once in walk8_overflows and once under paths["pk1"]."""
     img, png = _overflowing_rgba()
     stream, luts, p0, zl = _pack([png])
     t = _port_chain(stream, luts, p0, zl, h=32, w=32, c=4)
     assert t["ovf"]
     n0, d0 = TD.decode_batch.walk8_overflows, TD.decode_batch.device_images
+    k0, h0 = TD.decode_batch.paths["pk1"], TD.decode_batch.host_handoffs
     sts, outs = T.decode_batch([png], 4, device="cpu")
     assert sts == [0] and np.array_equal(outs[0], img)
     assert TD.decode_batch.walk8_overflows == n0 + 1
     assert TD.decode_batch.device_images == d0 + 1
+    assert TD.decode_batch.paths["pk1"] == k0 + 1
+    assert TD.decode_batch.host_handoffs == h0
+
+
+def _small_batch():
+    tiles = list(synthetic_corpus(3, size=32))
+    imgs = np.stack([tiles[0][:21, :13], tiles[3][:21, :13]])
+    stream, luts, p0, zl = _pack(T.encode_batch(imgs, 0, device="cpu"))
+    return imgs, (torch.from_numpy(stream),
+                  torch.from_numpy(luts.astype(np.int64)),
+                  torch.from_numpy(p0).long(), torch.from_numpy(zl).long())
 
 
 @pytest.mark.parametrize("walk8", ["1", "0"])
 def test_dispatch_takes_walk8_by_default(walk8, monkeypatch):
+    """FPNG_TPU_WALK8=0 selects the PK=1 walk, as in fpng_tpu."""
     monkeypatch.setenv("FPNG_TPU_WALK8", walk8)
-    tiles = list(synthetic_corpus(3, size=32))
-    imgs = np.stack([tiles[0][:21, :13], tiles[3][:21, :13]])
-    stream, luts, p0, zl = _pack(T.encode_batch(imgs, 0, device="cpu"))
+    imgs, args = _small_batch()
     got, ok, ovf, path = TD.dispatch_kernel(
-        torch.from_numpy(stream), torch.from_numpy(luts.astype(np.int64)),
-        torch.from_numpy(p0).long(), torch.from_numpy(zl).long(), h=21, w=13,
-        c=3, zmax=int(zl.max()))
-    assert path == ("walk8" if walk8 == "1" else "chunked")
+        *args, h=21, w=13, c=3, zmax=int(args[3].max()))
+    assert path == ("walk8" if walk8 == "1" else "pk1")
+    assert ok.all() and not ovf.any()
+    assert np.array_equal(got.numpy(), imgs)
+
+
+@pytest.mark.parametrize("walk8", ["1", "0"])
+def test_raster_past_the_gate_takes_the_chunked_decode(walk8, monkeypatch):
+    """Past ops/walk8.fits the dispatch takes the chunked decode whatever
+    FPNG_TPU_WALK8 says.  The gate is asked about the batch's own raster;
+    it answers as it would for a raster past 2^27 allocated slots."""
+    monkeypatch.setenv("FPNG_TPU_WALK8", walk8)
+    asked = []
+
+    def refuse(h, bpl):
+        asked.append((h, bpl))
+        return False
+
+    monkeypatch.setattr(TD, "fits", refuse)
+    imgs, args = _small_batch()
+    got, ok, ovf, path = TD.dispatch_kernel(
+        *args, h=21, w=13, c=3, zmax=int(args[3].max()))
+    assert asked == [(21, 39)] and path == "chunked"
     assert ok.all() and not ovf.any()
     assert np.array_equal(got.numpy(), imgs)
 
