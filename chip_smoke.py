@@ -26,7 +26,18 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      walk gate refusing as it does for a raster past 2^27 allocated
      slots, the same 32 images on the chunked decode (B10) and the
      overflow stream through chunked -> host;
-  7. decodes corrupted streams against golden's statuses.
+  7. decodes corrupted streams against golden's statuses;
+  probes: holds the probe kernels P1 (tools/prof_depparts, five modes) and
+     P2 (tools/prof_int8mxu, int8 and bf16) bit-exact against their plain
+     versions at the probes' own sizes, then runs each probe's main;
+  stream: encode_batch_stream over 4 headline batches and 4 32 bpp 2-pass
+     batches, byte-identical to encode_batch, and decode_batch_stream over
+     the same files (one corrupted in the middle batch) against
+     decode_batch, each timed twice against the same batches one call at
+     a time (in the order A B B A);
+  bench: runs fpng_tpu_torch.bench at full size and checks its JSON line;
+  cli: fpng_tpu_torch.cli's random-dims fuzz and its -f on a corrupted
+     file.
 
 The launch counters are set to 0 just before each path and read just
 after, to show that the path went through its kernels.  One line of
@@ -35,6 +46,8 @@ numbers per phase; then the card, the per-kernel JSON line, and last
 without the ok line.  It imports no JAX and nothing of fpng_tpu.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -51,6 +64,9 @@ DEV = "cuda"
 # integer and logic operations (their own rate is not published higher)
 HBM_BYTES_S = 3.35e12
 OPS_S = 67e12
+# dense tensor-core peaks (the same data sheet): int8 and bf16 operations/s
+TC_INT8_OPS_S = 1979e12
+TC_BF16_OPS_S = 989e12
 KERNELS = [  # name, source, the TPU kernel it replaces
     ("encode_bits_fused", "fpng_tpu_torch/csrc/encfuse.cu",
      "fpng_tpu/ops/encfuse.py:188"),
@@ -72,6 +88,10 @@ KERNELS = [  # name, source, the TPU kernel it replaces
      "fpng_tpu/ops/specdec_tpu.py:350"),
     ("finalize_records", "fpng_tpu_torch/csrc/finalize8.cu",
      "fpng_tpu/ops/specdec_tpu.py:721"),
+    ("depparts", "fpng_tpu_torch/csrc/prof_depparts.cu",
+     "tools/prof_depparts.py:70"),
+    ("int8_mxu", "fpng_tpu_torch/csrc/prof_int8mxu.cu",
+     "tools/prof_int8mxu.py:43"),
 ]
 MODES = [  # name, channels, 2-pass (bench.py's real3/real4 x 1/2-pass)
     ("real3_2pass", 3, True), ("real4_1pass", 4, False),
@@ -83,8 +103,13 @@ def check(cond, what):
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+T_START = time.perf_counter()
+
+
 def line(phase, **nums):
-    print(json.dumps({"phase": phase, **nums}), flush=True)
+    print(json.dumps({"phase": phase, **nums,
+                      "elapsed_s": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def cuda_ms(torch, fn, reps):
@@ -101,40 +126,11 @@ def cuda_ms(torch, fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_s=OPS_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over the peak 32-bit rate."""
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / OPS_S * 1e3
+    operations over their peak rate (by default the 32-bit one)."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def card_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
-def corpus(B=128, size=256, c=3):
-    """bench.py's corpus without example.png: synthetic tiles, repeated."""
-    from fpng_tpu_torch.train import synthetic_corpus
-
-    tiles = [np.ascontiguousarray(t[:size, :size])
-             for t in synthetic_corpus(c, size=size)]
-    return np.stack((tiles * -(-B // len(tiles)))[:B]), tiles
-
-
-def mosaic_4k(tiles, B=2):
-    """bench.py's 4K construction (rng seed 7) over the synthetic tiles."""
-    H, W = 2160, 3840
-    rng = np.random.default_rng(7)
-    out = []
-    for _ in range(B):
-        rows = [np.concatenate([tiles[rng.integers(0, len(tiles))]
-                                for _ in range(W // 256)], axis=1)
-                for _ in range(-(-H // 256))]
-        out.append(np.concatenate(rows, axis=0)[:H, :W])
-    return np.stack(out)
 
 
 def zlib_check(png, img):
@@ -365,8 +361,9 @@ def phase_kernels(torch, imgs):
 
 def kernel_line(res):
     for name, r in res.items():
-        r["bound_ms"], r["bound_by"] = r.pop("bound")
-        r["library_ms"] = None  # no single PyTorch call computes these
+        if "bound" in r:
+            r["bound_ms"], r["bound_by"] = r.pop("bound")
+        r.setdefault("library_ms", None)  # None: no single PyTorch call
         line("kernel", name=name, **r)
     return res
 
@@ -565,6 +562,240 @@ def walk_split(torch, pngs):
     return out
 
 
+def phase_probes(torch):
+    """P1 in the probe's five modes and P2 in both operand types against
+    their plain versions at the probes' own sizes, with CUDA-event times,
+    bounds and, where one PyTorch call does the same products, its time."""
+    from fpng_tpu_torch.tools import prof_depparts as P1
+    from fpng_tpu_torch.tools import prof_int8mxu as P2
+
+    def abs_err(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+    cu, big, ohc0 = P1.inputs(device=DEV)
+    Bn, Tn, R, _ = cu.shape
+    wps = R // 32
+    # every step's product: 8 rows of big against the 4096 x 128 one-hot
+    ops = 2 * 8 * P1.GROUP * 128 * Bn * Tn * wps
+    # bytes each mode must read once - cu (the slot columns of every
+    # step), big's rows 0..7, ohc0 - and the (B, 8, 128) output written
+    b_cu, b_big, b_ohc = 4 * cu.numel(), Bn * wps * 8 * P1.GROUP, ohc0.numel()
+    b_out = 4 * Bn * 8 * 128
+    mode_bound = {
+        "full": bound(b_cu + b_big + b_out, ops, TC_INT8_OPS_S),
+        "ohc": bound(b_cu + b_out, 0),
+        "dot": bound(b_big + b_ohc + b_out, ops, TC_INT8_OPS_S),
+        "dotbf16": bound(b_big + b_ohc + b_out, ops, TC_BF16_OPS_S),
+        "none": bound(Bn * 8 * 128 + b_out, 0)}
+    modes = {}
+    for mode in P1.MODES:
+        got = P1.depparts(cu, big, ohc0, mode)
+        want = P1.depparts_plain(cu, big, ohc0, mode)
+        check(torch.equal(got, want), f"P1 {mode} differs from plain")
+        bms, by = mode_bound[mode]
+        modes[mode] = dict(
+            max_abs_err=abs_err(got, want),
+            ms=cuda_ms(torch, lambda: P1.depparts(cu, big, ohc0, mode), 10),
+            plain_ms=cuda_ms(torch, lambda: P1.depparts_plain(
+                cu, big, ohc0, mode), 3),
+            bound_ms=bms, bound_by=by, library_ms=None)
+    # dot's yardstick would be torch._int_mm on one walk's product
+    try:
+        torch._int_mm(big[0, 0, :8], ohc0[0])
+        modes["dot"]["library_ms"] = cuda_ms(torch, lambda: [
+            torch._int_mm(big[b, k, :8], ohc0[b]) for b in range(Bn)
+            for _ in range(Tn) for k in range(wps)], 1)
+        lib_note = "dot: B*T*WPS torch._int_mm calls"
+    except RuntimeError as e:
+        lib_note = (f"dot: torch._int_mm refuses (8, 4096) x (4096, 128): "
+                    f"{str(e).splitlines()[0][:160]}")
+    res = {"depparts": dict(
+        modes["full"], max_abs_err=max(m["max_abs_err"]
+                                       for m in modes.values()),
+        modes=modes, shape=[Bn, Tn, wps, big.shape[2]],
+        library_note=lib_note)}
+
+    a, b = P2.inputs(device=DEV)
+    K_, reps, Tn2 = a.shape[1], 8, 64
+    ops2 = 2 * 128 * K_ * 128 * reps * Tn2
+    dts = {}
+    for dt, peak in ((torch.int8, TC_INT8_OPS_S),
+                     (torch.bfloat16, TC_BF16_OPS_S)):
+        got = P2.int8_mxu(a, b, dtype=dt, reps=reps, T=Tn2)
+        want = P2.int8_mxu_plain(a, b, dtype=dt, reps=reps)
+        check(torch.equal(got, want), f"P2 {dt} differs from plain")
+        # the library: the same T * reps products as one stacked product
+        # (the casts and the sum over reps outside it)
+        if dt == torch.int8:
+            stack = torch.cat([(a + r).to(torch.int8) for r in range(reps)])
+            rhs = b.to(torch.int8).t().contiguous().t()
+
+            def lib(x=stack.repeat(Tn2, 1), y=rhs):
+                return torch._int_mm(x, y)
+        else:
+            stack = torch.cat([(a + r).float().bfloat16()
+                               for r in range(reps)])
+            rhs = b.float().bfloat16()
+
+            def lib(x=stack.repeat(Tn2, 1), y=rhs):
+                return torch.matmul(x, y)
+        try:
+            lib_ms = cuda_ms(torch, lib, 5)
+        except RuntimeError:
+            lib_ms = None
+        name = str(dt).replace("torch.", "")
+        dts[name] = dict(
+            max_abs_err=abs_err(got, want),
+            ms=cuda_ms(torch, lambda: P2.int8_mxu(a, b, dtype=dt, reps=reps,
+                                                  T=Tn2), 10),
+            plain_ms=cuda_ms(torch, lambda: P2.int8_mxu_plain(
+                a, b, dtype=dt, reps=reps), 3),
+            library_ms=lib_ms)
+        dts[name]["bound_ms"], dts[name]["bound_by"] = bound(
+            4 * (a.numel() + b.numel()) + 4 * 128 * 128, ops2, peak)
+        del lib, stack
+    res["int8_mxu"] = dict(
+        dts["int8"], max_abs_err=max(d["max_abs_err"] for d in dts.values()),
+        dtypes=dts, shape=[128, K_, reps, Tn2])
+    return kernel_line(res)
+
+
+def timed(fn):
+    """(fn(), host seconds it took)."""
+    t = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t
+
+
+def phase_stream(torch, T, name, imgs, flags, reset, read, path):
+    """encode_batch_stream over 4 batches (the corpus in 4 orders) against
+    encode_batch, then decode_batch_stream over the files, one corrupted in
+    the middle batch, against decode_batch.  The stream calls run with the
+    launch counters set to 0 just before.  Each stream is timed against the
+    same batches one call at a time, twice, in the order A B B A."""
+    B, H, W_, Cc = imgs.shape
+    batches = [imgs[np.random.default_rng(k).permutation(B)]
+               for k in range(4)]
+
+    def enc_seq():
+        return [T.encode_batch(x, flags, device=DEV) for x in batches]
+
+    def enc_stream():
+        return list(T.encode_batch_stream(iter(batches), flags, DEV))
+
+    want, t_es = timed(enc_seq)
+    reset()
+    got, t_en = timed(enc_stream)
+    pngs = [list(p) for p in got]
+    pngs[2][0] = pngs[2][0][:40] + b"\xff" + pngs[2][0][41:]
+
+    def dec_seq():
+        return [T.decode_batch(p, Cc, device=DEV) for p in pngs]
+
+    def dec_stream():
+        return list(T.decode_batch_stream(iter(pngs), Cc, DEV))
+
+    dec, t_dn = timed(dec_stream)
+    launches = read()
+    check(got == want, f"{name}: encode_batch_stream bytes differ")
+    check(all(launches[k] > 0 for k in path),
+          f"{name}: a kernel of the path never launched: {launches}")
+    ref, t_ds = timed(dec_seq)
+    # the second round in the opposite order, so each direction runs A B B A
+    t_ds2, t_dn2 = timed(dec_seq)[1], timed(dec_stream)[1]
+    t_en2, t_es2 = timed(enc_stream)[1], timed(enc_seq)[1]
+    check(len(dec) == 4, f"{name}: decode_batch_stream lost batches")
+    for (sts, outs), (wsts, wouts) in zip(dec, ref):
+        check(sts == wsts, f"{name}: stream statuses differ")
+        check(all((o is None) == (w is None) and
+                  (o is None or np.array_equal(o, w))
+                  for o, w in zip(outs, wouts)),
+              f"{name}: stream pixels differ")
+    check(dec[2][0][0] != 0 and dec[2][0][1:] == [0] * (B - 1),
+          f"{name}: the corrupted file's status did not stay local")
+    check(all(np.array_equal(o, i) for o, i in zip(dec[0][1], batches[0])),
+          f"{name}: stream pixels differ from the input")
+    mpix = 4 * B * H * W_ / 1e6
+    line("stream", name=name, batches=[4, B, H, W_, Cc],
+         encode_stream_mpix_s=mpix / min(t_en, t_en2),
+         encode_per_batch_mpix_s=mpix / min(t_es, t_es2),
+         decode_stream_mpix_s=mpix / min(t_dn, t_dn2),
+         decode_per_batch_mpix_s=mpix / min(t_ds, t_ds2),
+         encode_s={"stream": [t_en, t_en2], "per_batch": [t_es, t_es2]},
+         decode_s={"stream": [t_dn, t_dn2], "per_batch": [t_ds, t_ds2]},
+         corrupted_status=dec[2][0][0], launches=launches)
+    return launches
+
+
+def phase_bench(torch, reset, read, path):
+    """fpng_tpu_torch.bench's main at full size, launch counters set to 0
+    just before: one JSON line, every mode on walk8 or PK=1, and every
+    spot check run."""
+    from fpng_tpu_torch import bench
+
+    spots = []
+    spot = bench._spot_check
+    bench._spot_check = lambda *a: spots.append(spot(*a))
+    buf = io.StringIO()
+    reset()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main()
+    finally:
+        bench._spot_check = spot
+    launches = read()
+    out = buf.getvalue().splitlines()
+    check(rc == 0 and len(out) == 1, f"bench printed {len(out)} lines")
+    res = json.loads(out[0])
+    d = res["detail"]
+    names = [f"{k}_{m}" for k in ("real3", "real4") for m in ("1pass", "2pass")]
+    check(all(d.get(n, {}).get("decode_path") in ("walk8", "pk1")
+              for n in names + ["large4k_1pass"]),
+          "bench: a mode left the walk paths")
+    check(len(spots) == 5, f"bench ran {len(spots)} spot checks, not 5")
+    check(all(launches[k] > 0 for k in path),
+          f"bench: a kernel of its path never launched: {launches}")
+    line("bench", result=res, spot_checks=len(spots), launches=launches)
+    return launches
+
+
+def phase_cli(T, img, reset, read):
+    """fpng_tpu_torch.cli's -E (20 trials, dims to 600) and -f on one
+    corrupted file (CRC checks off, as a fuzzer runs them), launch
+    counters set to 0 just before."""
+    from fpng_tpu_torch import cli
+
+    out_dir = os.path.join(HERE, ".build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    png = bytearray(T.encode_batch(img[None], device=DEV)[0])
+    check(not is_stored(png), "the -f file is stored")
+    idat_len = int.from_bytes(png[50:54], "big")
+    png[58 + idat_len // 2] ^= 0x40
+    bad = os.path.join(out_dir, "corrupted.png")
+    with open(bad, "wb") as f:
+        f.write(png)
+    buf = io.StringIO()
+    os.environ["FPNG_TPU_DISABLE_DECODE_CRC32_CHECKS"] = "1"
+    reset()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc_e = cli.main(["-E", "-n", "20", "-d", "600"])
+            rc_f = cli.main(["-f", bad])
+    finally:
+        del os.environ["FPNG_TPU_DISABLE_DECODE_CRC32_CHECKS"]
+    launches = read()
+    text = buf.getvalue().splitlines()
+    check(rc_e == 0 and "random-dims fuzz: 20 trials OK" in text,
+          f"cli -E: {text[-3:]}")
+    check(rc_f == 0 and any(t.startswith("status=") for t in text),
+          f"cli -f: {text[-3:]}")
+    check(launches["encode_bits_fused"] > 0 and
+          launches["walk_fix8"] + launches["walk_fix"] > 0,
+          f"cli: its kernels never launched: {launches}")
+    line("cli", fuzz_E_rc=rc_e, f_rc=rc_f, output=text, launches=launches)
+    return launches
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -573,11 +804,11 @@ def main():
     check(torch.cuda.is_available(), "no CUDA device")
     check(os.path.isdir(os.path.join(HERE, "fpng_tpu_torch")),
           "run from a checkout of the repository")
-    from fpng_tpu_torch import kernels
+    from fpng_tpu_torch import bench, kernels
 
     nvcc = subprocess.run([kernels.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
-    card = card_line()
+    card = bench.card_line(DEV)
     line("env", python=sys.version.split()[0], torch=torch.__version__,
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), card=card,
@@ -593,6 +824,8 @@ def main():
     from fpng_tpu_torch.ops.expand import expand
     from fpng_tpu_torch.ops.specdec_tpu import finalize_records, walk_fix
     from fpng_tpu_torch.ops.walk8 import finalize_records8, walk_fix8
+    from fpng_tpu_torch.tools import prof_depparts as P1
+    from fpng_tpu_torch.tools import prof_int8mxu as P2
 
     counters = {"encode_bits_fused": encode_bits_fused,
                 "crc32_words_masked_raw": crc_chunks,
@@ -603,7 +836,9 @@ def main():
                 "expand": expand,
                 "demote_mask": demote_mask,
                 "walk_fix": walk_fix,
-                "finalize_records": finalize_records}
+                "finalize_records": finalize_records,
+                "depparts": P1.depparts,
+                "int8_mxu": P2.int8_mxu}
     walk8_path = ("encode_bits_fused", "crc32_words_masked_raw", "walk_fix8",
                   "finalize_records8", "scatter_packed16", "expand")
     pk1_path = ("walk_fix", "finalize_records", "scatter_packed16", "expand")
@@ -629,10 +864,10 @@ def main():
          library=os.path.relpath(so, HERE))
 
     # --- 3. kernels against their plain versions ------------------------------
-    imgs, tiles = corpus()
+    imgs = bench.make_corpus("real3")
     B, H, W, Cc = imgs.shape
     kres = phase_kernels(torch, imgs)
-    mode_imgs = {3: imgs, 4: corpus(c=4)[0]}
+    mode_imgs = {3: imgs, 4: bench.make_corpus("real4")}
     kres.update(phase_demote(torch, mode_imgs[4]))
     kres.update(phase_pk1(torch, T, mode_imgs[3]))
 
@@ -705,7 +940,7 @@ def main():
          device_busy_s=busy, device_idle_share=idle, top_device=top)
 
     # --- 5. large raster -------------------------------------------------------
-    big = mosaic_4k(tiles)
+    big = bench.make_corpus_4k()
     reset()
     times = {}
     for run in range(2):
@@ -850,7 +1085,7 @@ def main():
     # --- 7. corrupted streams -----------------------------------------------
     rng = np.random.default_rng(11)
     small = [(rng.normal(120, 30, (24, 31, 3)).clip(0, 255)).astype(np.uint8),
-             np.full((20, 20, 3), 7, np.uint8), tiles[0][:40, :50]]
+             np.full((20, 20, 3), 7, np.uint8), imgs[0][:40, :50]]
     bad = []
     for img in small:
         png = np.frombuffer(T.encode_batch(img[None], device=DEV)[0], np.uint8)
@@ -875,6 +1110,33 @@ def main():
          device_decoded=decode_batch.device_images,
          paths=decode_batch.paths)
 
+    # --- probes: P1 and P2, then each probe's main -----------------------
+    kres.update(phase_probes(torch))
+    buf = io.StringIO()
+    reset()
+    with contextlib.redirect_stdout(buf):
+        rc = P1.main() + P2.main()
+    probe_launches = read()
+    check(rc == 0 and probe_launches["depparts"] > 0 and
+          probe_launches["int8_mxu"] > 0 and
+          sum(probe_launches.values()) == probe_launches["depparts"] +
+          probe_launches["int8_mxu"],
+          f"the probes' mains did not run their kernels: {probe_launches}")
+    line("probes", main_output=buf.getvalue().splitlines(),
+         launches=probe_launches)
+
+    # --- stream, bench, cli: the harness path at full size ------------------
+    encode_path = ("encode_bits_fused", "crc32_words_masked_raw")
+    stream_launches = {
+        "real3_1pass": phase_stream(torch, T, "real3_1pass", imgs, 0, reset,
+                                    read, walk8_path),
+        "real4_2pass": phase_stream(torch, T, "real4_2pass", mode_imgs[4],
+                                    T.FPNG_ENCODE_SLOWER, reset, read,
+                                    encode_path + pk1_path)}
+    bench_launches = phase_bench(torch, reset, read,
+                                 walk8_path + pk1_path + ("demote_mask",))
+    cli_launches = phase_cli(T, imgs[0], reset, read)
+
     # --- 8. close ------------------------------------------------------------
     check("jax" not in sys.modules, "JAX was imported")
     check(not [m for m in sys.modules
@@ -884,16 +1146,20 @@ def main():
         launches, deposit_bits=chunked_launches["deposit_bits"],
         demote_mask=mode_launches["real4_1pass"]["demote_mask"],
         walk_fix=mode_launches["real3_2pass"]["walk_fix"],
-        finalize_records=mode_launches["real3_2pass"]["finalize_records"])
+        finalize_records=mode_launches["real3_2pass"]["finalize_records"],
+        depparts=probe_launches["depparts"],
+        int8_mxu=probe_launches["int8_mxu"])
     line("launches", walk8_path=launches, chunked_path=chunked_launches,
-         pk1_path=pk1_launches, modes=mode_launches)
+         pk1_path=pk1_launches, modes=mode_launches, probes=probe_launches,
+         stream=stream_launches, bench=bench_launches, cli=cli_launches)
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": path_launches[name],
          **{k: kres[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by",
-                                       "library_ms")}}
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "modes", "dtypes", "library_note")
+            if k in kres[name]}}
         for name, src, rep in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@ NVIDIA Hopper (counterpart of fpng_tpu/__init__.py).
 
 The single-image API mirrors the reference's entry points (fpng.h:17-111);
 the batched API (encode_batch / decode_batch) runs one device pass per
-same-shape batch on `device`.  Outputs are byte-identical to fpng_tpu's.
+same-shape batch on `device`, and the streaming API (encode_batch_stream /
+decode_batch_stream) pipelines a sequence of batches.  Outputs are
+byte-identical to fpng_tpu's.
 
 A CUDA tensor goes through the port's hand-written kernels (built from
 fpng_tpu_torch/csrc on first use); a CPU tensor goes through their plain
@@ -123,3 +125,24 @@ def decode_batch(pngs: list[bytes], desired_channels: int = 4,
     from .models.decoder import decode_batch as _impl
 
     return _impl(pngs, desired_channels, device=device)
+
+
+def encode_batch_stream(batches, flags: int = 0, device="cuda"):
+    """Pipelined multi-batch encode on `device`: yields list[bytes] per
+    input batch, byte-identical to encode_batch.
+
+    Overlaps batch k+1's upload and histogram with batch k's readback and
+    container assembly (the serving shape).
+    """
+    from .models.encoder import encode_batch_stream as _impl
+
+    return _impl(batches, flags, device)
+
+
+def decode_batch_stream(png_batches, desired_channels: int = 4,
+                        device="cuda"):
+    """Pipelined multi-batch decode on `device`: yields (statuses, images)
+    per batch."""
+    from .models.decoder import decode_batch_stream as _impl
+
+    return _impl(png_batches, desired_channels, device)

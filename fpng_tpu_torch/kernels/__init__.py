@@ -51,6 +51,10 @@ _SIGNATURES = {
     "fpng_expand": [_P, _I, _I, _I, _I, _P, _P],
     # deltas, len_sym, len_extra, cand, tbl, B, HW, out, stream
     "fpng_demote": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # cu, big, ohc0, B, T, WPS, M, src, prod, out, stream
+    "fpng_depparts": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # a, b, K, reps, T, bf16, out, stream
+    "fpng_int8mxu": [_P, _P, _I, _I, _I, _I, _P, _P],
 }
 
 _lib = None

@@ -24,7 +24,8 @@ device (`device_images`), images handed to the host decoder
 overflowed (`walk8_overflows`) and device batches by the path that decoded
 them (`paths`).  Setting `decode_batch.spans` to a dict turns on per-stage
 host-clock spans (off by default; see _span).  A kernel that fails to
-build or launch raises.
+build or launch raises.  decode_batch_stream pipelines batches: batch k+1
+is launched before batch k's readback is waited for.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from .. import constants as C
 from ..ops.specdec import decode_kernel, pack_lut, plan_chunks
 from ..ops.specdec_tpu import decode_kernel_pk1
 from ..ops.walk8 import decode_kernel8, fits
-from ..tables import lut_to_torch
+from .transfer import finish_readback, start_readback, to_device
 
 
 def _parse_one(png: bytes):
@@ -196,8 +197,10 @@ def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
 
 
 def _decode_launch(pngs: list[bytes], desired_channels: int, device):
-    """Host container/header parse + device decode launch.  Returns opaque
-    state for _decode_finish_host."""
+    """Host container/header parse, device decode launch and the start of
+    its readback (transfer.start_readback).  Returns opaque state for
+    _decode_finish_host.  The walks read a pass flag back each fixpoint
+    pass, so the device decode itself has run by the time this returns."""
     from ..golden import convert_channels, decode_stored
 
     n = len(pngs)
@@ -240,28 +243,25 @@ def _decode_launch(pngs: list[bytes], desired_channels: int, device):
         with _span("pack", device):
             stream, luts, p0, zl = pack_streams([metas[i] for i in idxs])
         with _span("h2d", device):
-            args = (torch.from_numpy(stream).to(device),
-                    lut_to_torch(luts, device),
-                    torch.from_numpy(p0).to(device),
-                    torch.from_numpy(zl).to(device))
+            args = tuple(to_device(a, device) for a in (
+                stream, luts.astype(np.int64), p0, zl))
         with _span("device", device):
             imgs, ok, overflow, path = dispatch_kernel(
                 *args, h=h, w=w, c=ch, zmax=int(zl.max()))
         decode_batch.paths[path] += 1
-        launched.append(((h, w, ch), idxs, metas, imgs, ok, overflow))
+        with _span("d2h", device):
+            readback = start_readback((imgs, ok, overflow))
+        launched.append(((h, w, ch), idxs, metas, readback))
     return (statuses, images, launched, desired_channels, metas)
 
 
 def _decode_finish_host(state):
-    """Device readback + per-image status resolution."""
+    """Wait for the readback, then resolve each image's status."""
     from ..golden import convert_channels, decode_zlib
 
     statuses, images, launched, desired_channels, _metas = state
-    for (h, w, ch), idxs, metas, imgs, ok, overflow in launched:
-        with _span("d2h", imgs.device):
-            imgs = imgs.cpu().numpy()
-            ok = ok.cpu().numpy()
-            overflow = overflow.cpu().numpy()
+    for (h, w, ch), idxs, metas, readback in launched:
+        imgs, ok, overflow = finish_readback(readback)
         with _span("finish", "cpu"):
             for j, i in enumerate(idxs):
                 if ok[j]:
@@ -283,3 +283,19 @@ def _decode_finish_host(state):
                 else:
                     statuses[i] = C.FPNG_DECODE_NOT_FPNG
     return statuses, images
+
+
+def decode_batch_stream(png_batches, desired_channels: int = 4,
+                        device="cuda"):
+    """Pipelined multi-batch decode on `device`: yields (statuses, images)
+    per input list of PNGs, in order, each as decode_batch gives it.
+    Batch k+1's host parse and device decode are launched before batch k's
+    readback is waited for and its statuses resolved."""
+    pending = None
+    for pngs in png_batches:
+        state = _decode_launch(list(pngs), desired_channels, device)
+        if pending is not None:
+            yield _decode_finish_host(pending)
+        pending = state
+    if pending is not None:
+        yield _decode_finish_host(pending)

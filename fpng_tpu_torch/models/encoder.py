@@ -15,7 +15,8 @@ Every mode is ported: 1-pass and 2-pass (FPNG_ENCODE_SLOWER), at 24 and
 1-pass runs fpng's cost check (kernel B7, ops/encfuse.demote_mask) in the
 prologue.  2-pass first histograms the tokens on the device (hist_kernel),
 builds each image's tables on the host (the native runtime, else its
-Python twin) and then encodes with them.
+Python twin) and then encodes with them.  encode_batch_stream pipelines
+batches over the same stages, with pinned host buffers (transfer.py).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..ops.encfuse import (DESC_EXTRA_N_SHIFT, DESC_EXTRA_VAL_SHIFT,
 from ..ops.filter import filter_deltas
 from ..ops.tokenize import match_fields
 from ..tables import one_pass_state
+from .transfer import finish_readback, start_readback, to_device
 
 
 def _len_sym_extra(adj: torch.Tensor):
@@ -202,10 +204,10 @@ def launch_assemble(words, total_bits, adler, prefixes):
     the (B,) int64 CRC tensor.  The rest of container assembly is the host
     memcpy in _finish_batch_devcrc."""
     dev = words.device
-    plens = torch.tensor([len(p) for p in prefixes], dtype=torch.int64)
-    raw_ip = torch.from_numpy(raw_idat_prefix(prefixes).astype(np.int64))
-    return idat_crc_words(words, total_bits, adler, plens.to(dev),
-                          raw_ip.to(dev))
+    plens = np.array([len(p) for p in prefixes], np.int64)
+    raw_ip = raw_idat_prefix(prefixes).astype(np.int64)
+    return idat_crc_words(words, total_bits, adler, to_device(plens, dev),
+                          to_device(raw_ip, dev))
 
 
 _IEND12 = b"\x00\x00\x00\x00IEND\xaeB`\x82"
@@ -213,17 +215,14 @@ _IEND12 = b"\x00\x00\x00\x00IEND\xaeB`\x82"
 
 def _finish_batch_devcrc(images, words, crc, total_bits, last_tok, adler,
                          prefixes, budget) -> list[bytes]:
-    """Host tail of the device-CRC assembly: per-image memcpy splice of
-    hdr58 + prefix + payload words + adler + crc + IEND, with the stored
-    fallback where the budget rule fired (fpng.cpp:1728-1758)."""
+    """Host tail of the device-CRC assembly, on the results read back as
+    numpy arrays: per-image memcpy splice of hdr58 + prefix + payload words
+    + adler + crc + IEND, with the stored fallback where the budget rule
+    fired (fpng.cpp:1728-1758)."""
     from ..container import build_header
 
     B, H, W, Cc = images.shape
-    words = words.cpu().numpy()
-    crc = crc.cpu().numpy()
-    total_bits = total_bits.cpu().numpy()
-    last_tok = last_tok.cpu().numpy().astype(np.int64)
-    adler = adler.cpu().numpy()
+    last_tok = last_tok.astype(np.int64)
     tb = (total_bits.astype(np.int64) + 7) >> 3
     plens = np.array([len(p) for p in prefixes], np.int64)
     fail = ((last_tok >= 0) & ((last_tok >> 3) + 8 > budget)) | \
@@ -290,7 +289,7 @@ def _prepare_tables(images: np.ndarray, hist_dev, flags: int, dev):
         else:
             codes, sizes, prefixes, pend_val, pend_n = \
                 _build_tables_python(hist, Cc)
-        codes, sizes = (torch.from_numpy(a.astype(np.int64)).to(dev)
+        codes, sizes = (to_device(a.astype(np.int64), dev)
                         for a in (codes, sizes))
         return codes, sizes, prefixes, pend_val, pend_n, False
     st = one_pass_state(Cc, dev)
@@ -305,22 +304,14 @@ def encode_batch(images, flags: int = 0, device="cuda") -> list[bytes]:
     return encode_batch_device_input(None, images, flags, device)
 
 
-def encode_batch_device_input(dev_imgs, images: np.ndarray, flags: int = 0,
-                              device="cuda") -> list[bytes]:
-    """encode_batch over images already on the device (`dev_imgs`, or None
-    to copy `images` to `device`).  `images` is the matching host copy,
-    used for the stored-block fallback."""
-    _validate(images)
+def _encode_launch(dev_imgs, images: np.ndarray, flags: int, hist):
+    """Queue one batch's device encode: the tables (for 2-pass, reading
+    the device histogram `hist` is the stage's one sync), the desc stream,
+    kernel B1 and the IDAT CRC.  Returns the readback of (words, crc,
+    total_bits, last_tok, adler), the header prefixes and the budget."""
     B, H, W, Cc = images.shape
-    if flags & C.FPNG_FORCE_UNCOMPRESSED:
-        return [_stored_png(images[b]) for b in range(B)]
-    if dev_imgs is None:
-        dev_imgs = torch.from_numpy(images).to(device)
     dev = dev_imgs.device
-
     budget = _budget(H, W, Cc)
-    hist = (hist_kernel(dev_imgs, num_chans=Cc)
-            if flags & C.FPNG_ENCODE_SLOWER else None)
     codes, sizes, prefixes, pend_val, pend_n, cost_check = _prepare_tables(
         images, hist, flags, dev)
     # desc-field invariants (ops/encfuse.py layout), for every image: the
@@ -329,12 +320,79 @@ def encode_batch_device_input(dev_imgs, images: np.ndarray, flags: int = 0,
     assert max(map(len, prefixes)) * 8 < _MAX_BASE_BITS
 
     def col(a):
-        return torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+        return to_device(np.asarray(a, np.int32), dev)
 
     words, total_bits, last_tok, adler = encode_kernel(
         dev_imgs, codes, sizes, col([len(p) * 8 for p in prefixes]),
         col(pend_val), col(pend_n), num_chans=Cc, cost_check=cost_check,
         num_words=_num_words(budget))
     crc = launch_assemble(words, total_bits, adler, prefixes)
-    return _finish_batch_devcrc(images, words, crc, total_bits, last_tok,
-                                adler, prefixes, budget)
+    return (start_readback((words, crc, total_bits, last_tok, adler)),
+            prefixes, budget)
+
+
+def _encode_finish(images: np.ndarray, launched) -> list[bytes]:
+    readback, prefixes, budget = launched
+    return _finish_batch_devcrc(images, *finish_readback(readback),
+                                prefixes, budget)
+
+
+def _hist(dev_imgs, flags: int):
+    return (hist_kernel(dev_imgs, num_chans=dev_imgs.shape[3])
+            if flags & C.FPNG_ENCODE_SLOWER else None)
+
+
+def encode_batch_device_input(dev_imgs, images: np.ndarray, flags: int = 0,
+                              device="cuda") -> list[bytes]:
+    """encode_batch over images already on the device (`dev_imgs`, or None
+    to copy `images` to `device`).  `images` is the matching host copy,
+    used for the stored-block fallback."""
+    _validate(images)
+    if flags & C.FPNG_FORCE_UNCOMPRESSED:
+        return [_stored_png(img) for img in images]
+    if dev_imgs is None:
+        dev_imgs = to_device(images, device)
+    return _encode_finish(images, _encode_launch(
+        dev_imgs, images, flags, _hist(dev_imgs, flags)))
+
+
+def encode_batch_stream(batches, flags: int = 0, device="cuda"):
+    """Pipelined multi-batch encode on `device`: yields one list[bytes] per
+    input batch, in order, each byte-identical to encode_batch's.
+
+    Batch k+1 is staged (its pixels go up as a non-blocking copy from
+    pinned memory and, for 2-pass, its histogram is queued) and launched
+    before batch k's results are waited for.  Batch k's results come back
+    on a side stream (transfer.py), so its host tail - the container
+    splice, or the stored fallback - overlaps batch k+1's device work.
+    FPNG_FORCE_UNCOMPRESSED stays on the host.  On a CPU device the stages
+    run in order.
+    """
+    def stage_in(images):
+        images = np.ascontiguousarray(images, dtype=np.uint8)
+        _validate(images)
+        if flags & C.FPNG_FORCE_UNCOMPRESSED:
+            return images, None, None
+        dev_imgs = to_device(images, device)
+        return images, dev_imgs, _hist(dev_imgs, flags)
+
+    def launch(staged):
+        images, dev_imgs, hist = staged
+        if dev_imgs is None:  # stored path: host only
+            return images, None
+        return images, _encode_launch(dev_imgs, images, flags, hist)
+
+    def finish(launched):
+        images, state = launched
+        if state is None:
+            return [_stored_png(img) for img in images]
+        return _encode_finish(images, state)
+
+    pending = None
+    for batch in batches:
+        launched = launch(stage_in(batch))
+        if pending is not None:
+            yield finish(pending)
+        pending = launched
+    if pending is not None:
+        yield finish(pending)

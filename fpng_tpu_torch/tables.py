@@ -26,6 +26,7 @@ import torch
 from . import constants as C
 from .bitio import BitWriter
 from .huffman import adjust_freq32, build_tables, emit_dynamic_block_header
+from .models.transfer import to_device
 from .ops.encfuse import pack_table
 
 # artifact: (prefix_bytes, pending_bits, pending_count, codes_u32, sizes_u8)
@@ -124,14 +125,8 @@ def one_pass_state(num_chans: int, device,
     if tables is None:
         tables = get_one_pass_tables(num_chans)
     prefix, acc, nacc, codes, sizes = tables
-    codes_t = torch.from_numpy(np.asarray(codes).astype(np.int64)).to(device)
-    sizes_t = torch.from_numpy(np.asarray(sizes).astype(np.int64)).to(device)
+    codes_t, sizes_t = (to_device(np.asarray(a).astype(np.int64), device)
+                        for a in (codes, sizes))
     tbl = pack_table(codes_t[None], sizes_t[None])[0]
     return OnePassState(bytes(prefix), int(acc), int(nacc), codes_t, sizes_t,
                         tbl)
-
-
-def lut_to_torch(packed_lut: np.ndarray, device) -> torch.Tensor:
-    """(B, 4096) uint32 packed 12-bit decode LUTs (ops/specdec.pack_lut)
-    -> int64 tensor on `device`."""
-    return torch.from_numpy(packed_lut.astype(np.int64)).to(device)

@@ -120,9 +120,9 @@ def test_devcrc_assembly_equals_build_png():
     total_bits = torch.from_numpy(tbytes * 8)
     crc = launch_assemble(tw, total_bits, torch.from_numpy(adler), prefixes)
     budget = NW * 4
-    pngs = _finish_batch_devcrc(
-        np.zeros((B, H, W, Cc), np.uint8), tw, crc, total_bits,
-        torch.full((B,), -1), torch.from_numpy(adler), prefixes, budget)
+    pngs = _finish_batch_devcrc(  # on the results as read back to the host
+        np.zeros((B, H, W, Cc), np.uint8), tw.numpy(), crc.numpy(),
+        total_bits.numpy(), np.full(B, -1), adler, prefixes, budget)
     for b in range(B):
         if tbytes[b] + 4 > budget:  # the stored fallback fired
             assert (pngs[b][58 + 2] & 6) == 0

@@ -30,6 +30,8 @@ from fpng_tpu_torch.ops.encfuse import (demote_mask, demote_mask_plain,
                                         pack_table)
 from fpng_tpu_torch.ops.expand import expand, expand_plain
 from fpng_tpu_torch.tables import one_pass_state
+from fpng_tpu_torch.tools import prof_depparts as TP1
+from fpng_tpu_torch.tools import prof_int8mxu as TP2
 from fpng_tpu_torch.train import synthetic_corpus
 
 pytestmark = pytest.mark.usefixtures("cuda_device")
@@ -363,6 +365,35 @@ def test_mode_roundtrip_on_card_matches_cpu(rng, c, flags):
     sts, outs = T.decode_batch(gpu, c, device="cuda")
     assert sts == [0] * len(imgs)
     assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+
+
+@pytest.mark.parametrize("mode", TP1.ALL_MODES)
+@pytest.mark.parametrize("m", [8, 12])
+def test_depparts_matches_plain(mode, m):
+    """P1 at B = 3, T = 2, WPS = 2: the kernel's last step against the
+    plain version, every mode; cu includes negative slot words."""
+    cu, big, ohc0 = TP1.inputs(3, 2, 2, m, seed=m, device="cpu")
+    cu[:, :, ::7] = -cu[:, :, ::7] - 1
+    n0 = TP1.depparts.launches
+    got = TP1.depparts(cu.cuda(), big.cuda(), ohc0.cuda(), mode)
+    torch.cuda.synchronize()
+    assert TP1.depparts.launches == n0 + 1
+    assert torch.equal(got.cpu(), TP1.depparts_plain(cu, big, ohc0, mode))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_int8_mxu_matches_plain(dtype):
+    """P2 at K = 256, reps = 3, T = 2: a reaches past 256, so the int8
+    cast wraps and the bf16 cast rounds."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.integers(0, 1000, (128, 256)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(0, 2, (256, 128)).astype(np.int32))
+    n0 = TP2.int8_mxu.launches
+    got = TP2.int8_mxu(a.cuda(), b.cuda(), dtype=dtype, reps=3, T=2)
+    torch.cuda.synchronize()
+    assert TP2.int8_mxu.launches == n0 + 1
+    assert torch.equal(got.cpu(), TP2.int8_mxu_plain(a, b, dtype=dtype,
+                                                     reps=3))
 
 
 def test_walk8_overflow_decodes_on_pk1_on_card():

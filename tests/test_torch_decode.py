@@ -20,7 +20,6 @@ from fpng_tpu import golden
 from fpng_tpu.ops import specdec as JS
 from fpng_tpu_torch.models.decoder import _parse_one, decode_batch
 from fpng_tpu_torch.ops import specdec as TS
-from fpng_tpu_torch.tables import lut_to_torch
 from tests.conftest import make_test_image
 
 
@@ -75,7 +74,7 @@ def test_decode_kernel_matches_jax(case):
         jnp.asarray(stream), jnp.asarray(luts), jnp.asarray(p0),
         jnp.asarray(zl), **kw))
     t_imgs, t_ok, t_ovf = (a.numpy() for a in TS.decode_kernel(
-        torch.from_numpy(stream), lut_to_torch(luts, "cpu"),
+        torch.from_numpy(stream), torch.from_numpy(luts.astype(np.int64)),
         torch.from_numpy(p0), torch.from_numpy(zl), **kw))
     assert np.array_equal(t_ok, j_ok) and np.array_equal(t_ovf, j_ovf)
     assert np.array_equal(t_imgs, j_imgs)

@@ -29,6 +29,8 @@ from fpng_tpu_torch import huffman as Thuffman
 from fpng_tpu_torch import runtime as Truntime
 from fpng_tpu_torch import tables as Ttables
 from fpng_tpu_torch import train as Ttrain
+from fpng_tpu.utils import pngreader as Fpngreader
+from fpng_tpu_torch.utils import pngreader as Tpngreader
 from tests.conftest import make_test_image
 
 
@@ -172,3 +174,37 @@ def test_port_roundtrip_matches_fpng_tpu_bytes():
     assert T.encode_batch(img[None], 0, device="cpu")[0] == png
     st, out, *_ = T.fpng_decode_memory(png, 3, device="cpu")
     assert st == 0 and np.array_equal(out, img)
+
+
+def _load_both(data, desired):
+    out = []
+    for mod in (Tpngreader, Fpngreader):
+        try:
+            out.append(mod.load_png(data, desired))
+        except mod.PngError as e:
+            out.append(str(e))
+    return out
+
+
+@pytest.mark.parametrize("desired", [3, 4])
+def test_pngreader_matches(images, desired):
+    """load_png on the conftest shapes (1-pass, 2-pass and stored files of
+    each) and on corrupted copies: same pixels, or the same error."""
+    rng = np.random.default_rng(desired)
+    n_err = 0
+    for k, img in enumerate(images):
+        h, w, c = img.shape
+        flags = (0, FC.FPNG_ENCODE_SLOWER, FC.FPNG_FORCE_UNCOMPRESSED)[k % 3]
+        png = Fgolden.encode_image_to_memory(img, w, h, c, flags)
+        bad = bytearray(png)
+        bad[int(rng.integers(8, len(bad)))] ^= 0x10
+        for data in (png, bytes(bad)):
+            got, want = _load_both(data, desired)
+            if isinstance(want, str):
+                assert got == want
+                n_err += 1
+                continue
+            assert np.array_equal(got[0], want[0]) and got[1:] == want[1:]
+        assert np.array_equal(_load_both(png, desired)[0][0][..., :c],
+                              img[..., :desired])
+    assert n_err > 0

@@ -9,16 +9,20 @@ import torch
 
 import fpng_tpu_torch as T
 from fpng_tpu import constants as C
+from fpng_tpu_torch import bench
 from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
 from fpng_tpu_torch.ops.checksum import crc_chunks
 from fpng_tpu_torch.ops.encfuse import demote_mask, encode_bits_fused
 from fpng_tpu_torch.ops.expand import expand
 from fpng_tpu_torch.ops.specdec_tpu import finalize_records, walk_fix
 from fpng_tpu_torch.ops.walk8 import finalize_records8, walk_fix8
+from fpng_tpu_torch.tools.prof_depparts import depparts
+from fpng_tpu_torch.tools.prof_depparts import inputs as depparts_inputs
+from fpng_tpu_torch.tools.prof_int8mxu import int8_mxu
 
 WRAPPERS = (encode_bits_fused, crc_chunks, deposit_bits, walk_fix8,
             finalize_records8, scatter_packed16, expand, demote_mask,
-            walk_fix, finalize_records)
+            walk_fix, finalize_records, depparts, int8_mxu)
 
 
 def test_import_leaves_out_jax_and_triton():
@@ -51,7 +55,7 @@ def test_import_leaves_out_jax_and_triton():
 def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     """On CPU tensors the wrappers run their plain versions and never
     touch the kernel library (there is no nvcc here): every encode mode,
-    and both walk decodes."""
+    both walk decodes and the probes P1 and P2."""
     from fpng_tpu_torch import kernels
     from fpng_tpu_torch.models.decoder import decode_batch
 
@@ -67,6 +71,11 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
         sts, outs = T.decode_batch(pngs, c, device="cpu")
         assert sts == [0, 0]
         assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    cu, big, ohc0 = depparts_inputs(1, 1, 1, 8, device="cpu")
+    assert depparts(cu, big, ohc0, "full").shape == (1, 8, 128)
+    a = torch.ones((128, 32), dtype=torch.int32)
+    assert int8_mxu(a, a.T.contiguous(), dtype=torch.int8, reps=2,
+                    T=3).sum() == 128 * 128 * 32 * 3
     assert decode_batch.paths["walk8"] == paths["walk8"] + 2
     assert decode_batch.paths["pk1"] == paths["pk1"] + 1
     assert [f.launches for f in WRAPPERS] == before
@@ -107,3 +116,7 @@ def test_cuda_tensor_without_card_raises():
     img = np.zeros((1, 4, 4, 3), np.uint8)
     with pytest.raises((RuntimeError, AssertionError)):
         T.encode_batch(img, 0)
+    with pytest.raises((RuntimeError, AssertionError)):
+        list(T.encode_batch_stream([img]))
+    with pytest.raises(RuntimeError):
+        bench.main()
