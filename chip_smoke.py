@@ -11,7 +11,9 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      decode's shapes; B3-B6 on the decode of the headline corpus's own
      streams; B7 on the 32 bpp 1-pass corpus's cost-check inputs; B8 and
      B9 on the decode of the 24 bpp 2-pass corpus, which overflows
-     walk8), with CUDA-event times and a bytes/operations bound;
+     walk8), with CUDA-event times and a bytes/operations bound; then B3
+     once more on the 32 bpp 1-pass corpus, whose overflowing images it
+     stops at their first converged overflow (each walk is one launch);
   4. drives encode_batch / decode_batch (and the single-image entry
      points) at the headline size, 128 x 256 x 256 x 3: the decode takes
      the walk8 path, every file is checked with zlib and the port's
@@ -157,7 +159,6 @@ def is_stored(png):
 def phase_kernels(torch, imgs):
     """Each kernel against its plain version at the main path's shapes."""
     import fpng_tpu_torch as T
-    from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
     from fpng_tpu_torch.models.encoder import _budget, _num_words, build_desc
     from fpng_tpu_torch.ops import walk8 as W
     from fpng_tpu_torch.ops.bitpack import (deposit_bits, from_word32,
@@ -260,16 +261,8 @@ def phase_kernels(torch, imgs):
 
     # B3-B6 on the walk8 decode of the corpus's own dynamic-block streams
     pngs = T.encode_batch(imgs, device=DEV)
-    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
-    stream, luts, p0, zl = pack_streams(metas)
-    Bd = len(metas)
-    st_d = torch.from_numpy(stream).to(dev)
-    lut32 = torch.from_numpy(luts.astype(np.int32)).to(dev)
-    p0_d = torch.from_numpy(p0).to(dev)
-    zl_d = torch.from_numpy(zl).to(dev)
-    nc = W.n_chunks(int(zl.max()))
-    words8 = W.stream_words(st_d)
-    p0_32, zl8_32 = p0_d.to(torch.int32), (zl_d * 8).to(torch.int32)
+    Bd, (st_d, lut32, p0_d, zl_d), (words8, _, p0_32, zl8_32), nc = \
+        pack_batch(torch, pngs)
 
     def walk():
         return W.walk_fix8(words8, lut32, p0_32, zl8_32, n_chunks=nc)
@@ -277,28 +270,17 @@ def phase_kernels(torch, imgs):
     def walk_plain():
         return W.walk_fix8_plain(words8, lut32, p0_32, zl8_32, n_chunks=nc)
 
+    n0 = W.walk_fix8.launches
     g4, w4 = walk(), walk_plain()
-    check(g4[6] == w4[6], f"B3 passes {g4[6]} != plain {w4[6]}")
-    for a, b, what in zip(g4[:3], w4[:3], ("e_fin", "nst", "ovf")):
-        check(torch.equal(a, b), f"B3 {what} differs from plain")
-    rows = torch.arange(g4[3].shape[1], device=dev)[None, :, None] < \
-        w4[1][:, None]
-    e3 = 0
-    for a, b, what in zip(g4[3:6], w4[3:6], ("posr", "raw0", "raw1")):
-        a, b = torch.where(rows, a, 0), torch.where(rows, b, 0)
-        check(torch.equal(a, b), f"B3 {what} records differ from plain")
-        e3 = max(e3, masked_err(a, b))
+    check(W.walk_fix8.launches == n0 + 1, "B3 is not one launch a walk")
     check(not bool(g4[2].any()), "the headline corpus overflows walk8")
+    e3 = walk_err(torch, "B3", g4, w4)
     steps_sum = int(g4[1].sum())
     res["walk_fix8"] = dict(
-        max_abs_err=max(e3, masked_err(g4[0], w4[0])),
+        max_abs_err=e3,
         ms=cuda_ms(torch, walk, 5), plain_ms=cuda_ms(torch, walk_plain, 1),
-        # stream words and LUTs read, 12 record bytes a recorded step and
-        # 16 bytes a lane written; ~30 ops a step
-        bound=bound(4 * words8.numel() + 4 * lut32.numel() +
-                    12 * steps_sum + 16 * Bd * nc, 30 * steps_sum),
-        shape=[Bd, nc], step_rows=int(g4[3].shape[1]),
-        passes=g4[6], recorded_steps=steps_sum)
+        bound=walk_bound(words8, lut32, g4, Bd, nc),
+        **walk_counts(W, g4), shape=[Bd, nc], recorded_steps=steps_sum)
 
     records, e_fin, out0, steps, ovf, _ = W.decode_walk8(
         st_d, lut32, p0_d, zl_d, n_chunks=nc)
@@ -359,6 +341,100 @@ def phase_kernels(torch, imgs):
     return kernel_line(res)
 
 
+def pack_batch(torch, pngs):
+    """A batch's dynamic-block streams packed as decode_batch packs them,
+    on the card: (images, (stream, lut, p0, zlib_len) as decode_walk8 takes
+    them, (words, lut, p0, 8 * zlib_len) int32 as the walks take them,
+    lanes an image)."""
+    from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
+    from fpng_tpu_torch.ops import walk8 as W
+
+    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
+    stream, luts, p0, zl = pack_streams(metas)
+    stream, lut32, p0, zl = (torch.from_numpy(a).to(DEV) for a in (
+        stream, luts.view(np.int32), p0, zl))
+    return (len(metas), (stream, lut32, p0, zl),
+            (W.stream_words(stream), lut32, p0.to(torch.int32),
+             (zl * 8).to(torch.int32)),
+            W.n_chunks(int(zl.max())))
+
+
+def walk_err(torch, name, got, want, images=None):
+    """Hold a walk (B3 or B8) against its plain version: passes, e_fin,
+    nst and ovf exact, records up to nst; on `images` (default all) every
+    output.  Returns the largest difference (0)."""
+    check(int(got[6]) == int(want[6]),
+          f"{name} passes {int(got[6])} != plain {int(want[6])}")
+    sel = slice(None) if images is None else images
+    err = 0
+    rows = torch.arange(got[3].shape[1], device=got[3].device)[None, :, None] \
+        < want[1][sel][:, None]
+    for k, what in enumerate(("e_fin", "nst", "ovf", "posr", "raw0",
+                              "raw1")):
+        a, b = got[k][sel], want[k][sel]
+        if k >= 3:
+            a, b = torch.where(rows, a, 0), torch.where(rows, b, 0)
+        check(torch.equal(a, b), f"{name} {what} differs from plain")
+        err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                           .abs().max()) if a.numel() else 0)
+    return err
+
+
+def walk_bound(words, lut32, out, Bd, nc):
+    """B3's and B8's bound: stream words and LUTs read, 12 record bytes a
+    recorded step and 16 bytes a lane written; ~30 ops a step."""
+    steps_sum = int(out[1].sum())
+    return bound(4 * words.numel() + 4 * lut32.numel() + 12 * steps_sum +
+                 16 * Bd * nc, 30 * steps_sum)
+
+
+def walk_counts(W, out):
+    """The walk's passes, its launch geometry, and the serial floor the
+    design reaches for: passes x the longest walk of a lane, in steps."""
+    passes = int(out[6])
+    return dict(launches_per_walk=1, passes=passes,
+                step_rows=int(out[3].shape[1]),
+                max_lane_steps=int(out[1].max()),
+                serial_floor_steps=passes * int(out[1].max()),
+                occupancy=dict(W.walk_cuda.launch))
+
+
+def phase_walk8_overflow(torch, T, imgs):
+    """B3 on the 32 bpp 1-pass corpus, which overflows walk8: the kernel
+    stops each overflowing image at its first converged overflow as the
+    plain version does (overflow flags and passes equal), and gives every
+    other image the plain version's outputs.  The line gives the pass
+    after which the plain version stopped each overflowing image."""
+    from fpng_tpu_torch.ops import walk8 as W
+
+    Bd, _, (words, lut32, p0_32, zl8), nc = pack_batch(
+        torch, T.encode_batch(imgs, device=DEV))
+
+    def walk():
+        return W.walk_fix8(words, lut32, p0_32, zl8, n_chunks=nc)
+
+    n0 = W.walk_fix8.launches
+    g = walk()
+    check(W.walk_fix8.launches == n0 + 1, "B3 is not one launch a walk")
+    w, stopped = W.fixpoint_plain(words, lut32, p0_32, zl8, n_chunks=nc,
+                                  ST=8 * W.MAXIT, abort_on_overflow=True)
+    done = stopped > 0
+    live = W._lane_geometry(zl8, nc)[1]
+    g_ovf, w_ovf = ((o[2] & live).any(dim=1) for o in (g, w))
+    check(torch.equal(g_ovf, w_ovf), "B3 image overflow flags differ")
+    check(bool(done.any()) and torch.equal(done, w_ovf),
+          "an overflowing image was not stopped")
+    keep = torch.nonzero(~done).flatten()
+    err = walk_err(torch, "B3 (overflowing batch)", g, w, images=keep)
+    line("walk8_overflow", name="walk_fix8", corpus="real4_1pass",
+         shape=[Bd, nc], aborted_images=int(done.sum()),
+         stopped_after_passes=stopped[done].tolist(),
+         converged_images=int(keep.numel()), max_abs_err=err,
+         ms=cuda_ms(torch, walk, 5),
+         bound_ms=walk_bound(words, lut32, g, Bd, nc)[0],
+         **walk_counts(W, g))
+
+
 def kernel_line(res):
     for name, r in res.items():
         if "bound" in r:
@@ -402,7 +478,6 @@ def phase_demote(torch, imgs):
 def phase_pk1(torch, T, imgs):
     """B8 and B9 against their plain versions on the decode of a 2-pass
     batch whose streams overflow walk8's 96 step rows."""
-    from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
     from fpng_tpu_torch.ops import specdec_tpu as PK
     from fpng_tpu_torch.ops import walk8 as W
     from fpng_tpu_torch.ops.bitpack import scatter_packed16
@@ -410,19 +485,11 @@ def phase_pk1(torch, T, imgs):
 
     B, H, W_, Cc = imgs.shape
     pngs = T.encode_batch(imgs, T.FPNG_ENCODE_SLOWER, device=DEV)
-    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
-    stream, luts, p0, zl = pack_streams(metas)
-    Bd = len(metas)
-    st_d = torch.from_numpy(stream).to(DEV)
-    lut32 = torch.from_numpy(luts.astype(np.int32)).to(DEV)
-    p0_d = torch.from_numpy(p0).to(DEV)
-    zl_d = torch.from_numpy(zl).to(DEV)
-    nc = W.n_chunks(int(zl.max()))
+    Bd, (st_d, lut32, p0_d, zl_d), (words, _, p0_32, zl8_32), nc = \
+        pack_batch(torch, pngs)
     ovf = W.decode_walk8(st_d, lut32, p0_d, zl_d, n_chunks=nc)[4]
     n_ovf = int(ovf.sum())
     check(n_ovf > 0, "the 2-pass corpus does not overflow walk8")
-    words = W.stream_words(st_d)
-    p0_32, zl8_32 = p0_d.to(torch.int32), (zl_d * 8).to(torch.int32)
 
     def walk():
         return PK.walk_fix(words, lut32, p0_32, zl8_32, n_chunks=nc)
@@ -430,27 +497,15 @@ def phase_pk1(torch, T, imgs):
     def walk_plain():
         return PK.walk_fix_plain(words, lut32, p0_32, zl8_32, n_chunks=nc)
 
+    n0 = PK.walk_fix.launches
     g, w = walk(), walk_plain()
-    check(g[6] == w[6], f"B8 passes {g[6]} != plain {w[6]}")
-    for a, b, what in zip(g[:3], w[:3], ("e_fin", "nst", "ovf")):
-        check(torch.equal(a, b), f"B8 {what} differs from plain")
-    rows = torch.arange(PK.ST8, device=DEV)[None, :, None] < w[1][:, None]
-    err = int((g[0].to(torch.int64) - w[0].to(torch.int64)).abs().max())
-    for a, b, what in zip(g[3:6], w[3:6], ("posr", "raw0", "raw1")):
-        a, b = torch.where(rows, a, 0), torch.where(rows, b, 0)
-        check(torch.equal(a, b), f"B8 {what} records differ from plain")
-        err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
-                           .abs().max()))
-    steps_sum = int(g[1].sum())
+    check(PK.walk_fix.launches == n0 + 1, "B8 is not one launch a walk")
+    err = walk_err(torch, "B8", g, w)
     res = {"walk_fix": dict(
         max_abs_err=err, ms=cuda_ms(torch, walk, 3),
         plain_ms=cuda_ms(torch, walk_plain, 1),
-        # as walk_fix8: stream words and LUTs read, 12 record bytes a
-        # recorded step and 16 bytes a lane written; ~30 ops a step
-        bound=bound(4 * words.numel() + 4 * lut32.numel() +
-                    12 * steps_sum + 16 * Bd * nc, 30 * steps_sum),
-        shape=[Bd, nc], step_rows=PK.ST8, passes=g[6],
-        recorded_steps=steps_sum, max_lane_steps=int(g[1].max()),
+        bound=walk_bound(words, lut32, g, Bd, nc), **walk_counts(W, g),
+        shape=[Bd, nc], recorded_steps=int(g[1].sum()),
         walk8_overflow_images=n_ovf)}
 
     records, e_fin, out0, steps, _, _ = W.walk_offsets(
@@ -848,6 +903,7 @@ def main():
     def reset():
         for f in counters.values():
             f.launches = 0
+        walk_fix8.passes = walk_fix.passes = 0
         decode_batch.device_images = decode_batch.host_handoffs = 0
         decode_batch.walk8_overflows = 0
         decode_batch.paths = {"walk8": 0, "pk1": 0, "chunked": 0}
@@ -870,6 +926,7 @@ def main():
     mode_imgs = {3: imgs, 4: bench.make_corpus("real4")}
     kres.update(phase_demote(torch, mode_imgs[4]))
     kres.update(phase_pk1(torch, T, mode_imgs[3]))
+    phase_walk8_overflow(torch, T, mode_imgs[4])
 
     # --- 4. main path at the benchmark's headline size: walk8 decode ---------
     reset()
@@ -878,6 +935,7 @@ def main():
     launches = read()
     check(all(launches[k] > 0 for k in walk8_path),
           f"a kernel of the walk8 path never launched: {launches}")
+    check(launches["walk_fix8"] == 1, "B3 launched more than once a walk")
     check(not any(launches[k] for k in ("demote_mask", "walk_fix",
                                         "finalize_records", "deposit_bits")),
           f"a kernel off the headline path launched: {launches}")
@@ -915,11 +973,11 @@ def main():
         t = time.perf_counter()
         p2 = T.encode_batch(imgs, device=DEV)
         enc_s.append(time.perf_counter() - t)
-        n0 = walk_fix8.launches
+        n0 = walk_fix8.passes
         t = time.perf_counter()
         s2, _ = T.decode_batch(p2, Cc, device=DEV)
         dec_s.append(time.perf_counter() - t)
-        passes.append(walk_fix8.launches - n0)
+        passes.append(walk_fix8.passes - n0)
         check(p2 == pngs and s2 == sts, "steady-state runs differ")
     span_runs = decode_spans(torch, T, pngs, Cc)
     stages = {k: float(np.median([r[k] for r in span_runs]))
@@ -947,21 +1005,24 @@ def main():
         t = time.perf_counter()
         bp = T.encode_batch(big, device=DEV)
         te = time.perf_counter() - t
-        n0 = walk_fix8.launches
+        n0 = walk_fix8.passes
         t = time.perf_counter()
         bs, bo = T.decode_batch(bp, 3, device=DEV)
-        times[run] = (te, time.perf_counter() - t, walk_fix8.launches - n0)
+        times[run] = (te, time.perf_counter() - t, walk_fix8.passes - n0)
     check(bs == [0, 0] and all(np.array_equal(o, i) for o, i in zip(bo, big)),
           "4K round trip")
     check(all(zlib_check(p, i) for p, i in zip(bp, big)), "4K zlib check")
     check(decode_batch.paths == {"walk8": 2, "pk1": 0, "chunked": 0},
           f"4K decode paths {decode_batch.paths}")
     check(decode_batch.device_images == 4, "4K images not decoded on device")
+    _, _, wargs4, nc4 = pack_batch(torch, bp)
+    walk4k_ms = cuda_ms(torch, lambda: walk_fix8(*wargs4, n_chunks=nc4), 5)
     mpix = big.shape[0] * big.shape[1] * big.shape[2] / 1e6
     line("large_raster", batch=list(big.shape), encode_s=times[1][0],
          decode_s=times[1][1], encode_mpix_s=mpix / times[1][0],
          decode_mpix_s=mpix / times[1][1], first_run_s=list(times[0][:2]),
          decode_path="walk8", walk8_passes=times[1][2],
+         walk_fix8_ms=walk4k_ms, walk_fix8_lanes=[len(bp), nc4],
          stored_fallbacks=sum(map(is_stored, bp)),
          host_handoffs=decode_batch.host_handoffs,
          bytes=[len(p) for p in bp])
@@ -975,6 +1036,7 @@ def main():
         mp = T.encode_batch(mimgs, flags, device=DEV)
         ms, mo = T.decode_batch(mp, c, device=DEV)
         ml = mode_launches[name] = read()
+        walk_passes = {"walk8": walk_fix8.passes, "pk1": walk_fix.passes}
         paths = dict(decode_batch.paths)
         ovf, hand = decode_batch.walk8_overflows, decode_batch.host_handoffs
         check(ms == [0] * len(mimgs) and all(
@@ -988,6 +1050,8 @@ def main():
               f"{name} paths {paths} against {ovf} walk8 overflows")
         check(ovf == 0 or all(ml[k] > 0 for k in pk1_path),
               f"{name}: a kernel of the PK=1 path never launched: {ml}")
+        check(ml["walk_fix8"] == 1 and ml["walk_fix"] == paths["pk1"],
+              f"{name}: the walks are not one launch each: {ml}")
         for png, img in zip(mp, mimgs):
             check(zlib_check(png, img), f"{name} zlib reconstruction")
         distinct = {}
@@ -1020,7 +1084,7 @@ def main():
              encode_mpix_s=mpix / min(enc_s), decode_mpix_s=mpix / min(dec_s),
              encode_s=enc_s, decode_s=dec_s,
              decode_path="pk1" if ovf else "walk8", paths=paths,
-             walk8_overflows=ovf, host_handoffs=hand,
+             walk8_overflows=ovf, host_handoffs=hand, passes=walk_passes,
              stored_fallbacks=sum(map(is_stored, mp)),
              golden_checked=len(distinct), bytes=sum(map(len, mp)),
              launches=ml, stages_median=stages, **walk_split(torch, mp))

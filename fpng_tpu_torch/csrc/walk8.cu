@@ -1,104 +1,140 @@
-// B3: speculative Huffman walk from every 512-bit chunk boundary, and one
-// pass of the chunk-entry fixpoint per launch.
+// B3 and B8: speculative Huffman walk from every 512-bit chunk boundary,
+// then the chunk-entry fixpoint, all in one cooperative launch.
 //
-// Replaces fpng_tpu/ops/walk8.py:walk_fix8_tpu (Pallas kernel
-// _make_walk8_kernel / _walk8_body).  One thread walks one chunk lane: it
-// reads the 32-bit stream window at its bit position from two words, looks
-// the low 12 bits up in the packed LUT (ops/specdec.pack_lut) held in shared
-// memory, and records one row per step - position, sym | rec << 9 |
-// outlen << 10 | clen << 19 | is_match << 23, and the packed second literal
-// (0x100 | s2, or 0) - until it reaches its chunk's end, hits an invalid
-// code, or fills its ST rows (then it reports overflow).
+// Replaces fpng_tpu/ops/walk8.py:walk_fix8_tpu (B3, Pallas kernel
+// _make_walk8_kernel / _walk8_body) and fpng_tpu/ops/specdec_tpu.py:
+// walk_fix_tpu (B8, the PK=1 walk): the same walk at ST = 96 and ST = 536
+// step rows a lane.  One thread walks one chunk lane: it reads the 32-bit
+// stream window at its bit position from two words, looks the low 12 bits
+// up in the packed LUT (ops/specdec.pack_lut) held in shared memory, and
+// records one row per step - position, sym | rec << 9 | outlen << 10 |
+// clen << 19 | is_match << 23, and the packed second literal (0x100 | s2,
+// or 0) - until it reaches its chunk's end, hits an invalid code, or fills
+// its ST rows (then it reports overflow).
 //
-// The TPU ran the groups of lanes in grid order and carried the previous
-// group's converged exit in SMEM; Hopper blocks run in no order.  So the
-// fixpoint is one launch per pass over every lane: pass 0 walks each lane
-// from its chunk boundary (lane 0 from p0); pass k sets
-// entry[c] = exit[c-1] from pass k-1's exits (double-buffered, so every
-// pass reads a consistent snapshot) and re-walks a lane only when its entry
-// changed and is absent from the first 32 recorded positions (or second-
-// literal positions) of its last walk - the same membership window as the
-// TPU kernel, so the converged entries, exits and overflow flags match it.
-// The host reads a changed flag after each pass and stops when it is 0.
+// The TPU ran the groups of lanes in grid order, carrying the previous
+// group's converged exit in SMEM, and iterated inside the kernel.  Here
+// the blocks of one cooperative grid (the occupancy limit, capped by the
+// work) run every pass and meet at a grid-wide barrier between passes:
+// pass 0 walks each lane from its chunk boundary (lane 0 from p0); pass k
+// sets entry[c] = exit[c-1] from pass k-1's exits (double-buffered in
+// device memory, read past L1, so every pass reads a consistent snapshot)
+// and re-walks a lane only when its entry changed and is absent from the
+// first 32 recorded positions (or second-literal positions) of its last
+// walk - the same membership window as the TPU kernel, so the converged
+// entries, exits and overflow flags match it.  A block that saw a change
+// sets the pass's flag; after the barrier every block reads the same flag
+// and stops together, at most NC + 1 fixpoint passes.  The host sees no
+// pass: the pass count is written to device memory.
 //
-// Records are step-major, (B, ST, NC): the lanes of a warp write one
-// contiguous run per step.  A block never straddles two images, so it
-// loads one image's 16 KB LUT into shared memory.
+// With abort_on_overflow (B3), each image keeps its converged front: the
+// lanes below front[b] can no longer change.  After pass k the lane at the
+// old front is final (its predecessor was final a pass earlier), and so is
+// each later lane whose entry equals its predecessor's exit.  A front
+// phase after each pass finds the new front of every image at once (a
+// minimum over the lanes, by atomicMin) and, the same way, the first
+// overflowing live lane at or past the old front; when that lane lies
+// below the new front, it has just become final, the image is done - its
+// overflow is decided - and its lanes stop re-walking.  Other images run
+// on to convergence.
 //
-// What bounds it on the H100: the record bytes (12 per step) against a
-// latency-bound dependent chain of ~ST steps per lane (window load -> LUT
-// lookup -> next position); the stream words come through L1/L2.
+// Work split: 256-lane tiles of one image each; each block owns a
+// contiguous run of tiles for the whole launch, so a lane's records are
+// always written and read by the same thread.  A block loads the LUTs of
+// its images into shared memory once (up to kMaxLuts; an image past those
+// slots is looked up through L1).
+//
+// What bounds it on the H100: the serial chain of re-walks - about ST
+// dependent steps of window, then LUT lookup, per fixpoint pass - against
+// the record bytes (12 per step) of pass 0 and pass 1, where most lanes
+// walk.  The design keeps the chain on the card and short: no launch,
+// memset or readback between passes and no LUT reload; each walk stages
+// its chunk's stream words in shared memory with one burst of loads, so a
+// step reads no device memory; the membership test issues its row loads
+// eight at a time; B3's stop cuts the overflow cascade (one more lane a
+// pass) at the first converged overflow.
+
+#include <cooperative_groups.h>
+
+#include <algorithm>
+#include <climits>
 
 #include "common.cuh"
 
 namespace fpng {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kChunkBits = 512;
 constexpr int kMemb = 32;
-constexpr int kWalkThreads = 128;
+constexpr int kWalkThreads = 256;  // one 256-lane tile at a time
+constexpr int kLutWords = 4096;
+constexpr int kMaxLuts = 12;       // 12 x 16 KB of shared memory
+// stream words staged per lane: a walk from its chunk boundary reads 17
+constexpr int kStage = 18;
 
-__device__ __forceinline__ uint32_t window32(const uint32_t* __restrict__ s,
-                                             int nw, int pos) {
-  const int wi = pos >> 5, sh = pos & 31;
-  const uint32_t w0 = wi < nw ? __ldg(s + wi) : 0u;
-  const uint32_t w1 = wi + 1 < nw ? __ldg(s + wi + 1) : 0u;
-  return (w0 >> sh) | ((w1 << (31 - sh)) << 1);  // no shift by 32
+struct WalkArgs {
+  const uint32_t* words;
+  const int* lut;
+  const int* p0;
+  const int* zl8;
+  int nw, B, NC, ST, tpi, nt, abort, nlut;
+  int* ent;
+  int* ex0;  // exits of even passes
+  int* ex1;  // exits of odd passes
+  int* nst;
+  int* ovf;
+  int* posr;
+  int* raw0;
+  int* raw1;
+  int* ctl;  // changed flags [0, 3), passes, then the fronts (Fronts)
+};
+
+// Tiles [t0, t1) of block `blk` among G: a balanced contiguous split.
+__host__ __device__ __forceinline__ int tile_begin(int nt, int blk, int G) {
+  return (int)((long long)nt * blk / G);
 }
 
-__global__ void __launch_bounds__(kWalkThreads)
-walk8_pass_kernel(const uint32_t* __restrict__ words, int nw,
-                  const int* __restrict__ lut, const int* __restrict__ p0,
-                  const int* __restrict__ zl8, int NC, int ST, int first,
-                  int* __restrict__ ent, const int* __restrict__ exit_in,
-                  int* __restrict__ exit_out, int* __restrict__ nst,
-                  int* __restrict__ ovf, int* __restrict__ posr,
-                  int* __restrict__ raw0, int* __restrict__ raw1,
-                  int* __restrict__ changed) {
-  __shared__ int lut_s[4096];
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < 4096; i += kWalkThreads)
-    lut_s[i] = lut[(size_t)b * 4096 + i];
-  __syncthreads();
-  const int c = blockIdx.x * kWalkThreads + threadIdx.x;
-  if (c >= NC) return;
-  const size_t lane = (size_t)b * NC + c;
-  const size_t row0 = (size_t)b * ST * NC + c;
+__device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ s,
+                                         int nw, int wi) {
+  return wi < nw ? __ldg(s + wi) : 0u;
+}
+
+// Walk lane (b, c) from pos: records its steps, nst and ovf; returns its
+// exit.  The kStage stream words from pos's word on are first copied into
+// the thread's column of `stage` (shared memory, [word][thread], so a warp
+// reads 32 banks whatever its lanes' offsets), with their loads issued
+// together; each step then cuts its 32-bit window from shared memory, and
+// only a walk that runs past the staged words reads device memory again.
+__device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
+                    int b, int c, int pos) {
+  const size_t lane = (size_t)b * a.NC + c;
+  const size_t row0 = (size_t)b * a.ST * a.NC + c;
   const int bit0 = c * kChunkBits;
-  const int z = zl8[b];
-  const bool live = bit0 < z;
+  const int z = __ldg(a.zl8 + b);
   const int bound = min(bit0 + kChunkBits, z);
-
-  int pos;
-  if (first) {
-    pos = c == 0 ? p0[b] : bit0;
-    ent[lane] = pos;
-  } else {
-    pos = c == 0 ? p0[b] : exit_in[lane - 1];
-    if (!live || pos == ent[lane]) {
-      exit_out[lane] = exit_in[lane];
-      return;
-    }
-    *changed = 1;
-    ent[lane] = pos;
-    // a recorded path that holds the new entry is the walk from it
-    const int m = min(min(kMemb, ST), nst[lane]);
-    for (int j = 0; j < m; ++j) {
-      const size_t r = row0 + (size_t)j * NC;
-      const int p = posr[r];
-      if (p == pos || (raw1[r] != 0 && p + ((raw0[r] >> 19) & 15) == pos)) {
-        exit_out[lane] = exit_in[lane];
-        return;
-      }
-    }
+  const uint32_t* s = a.words + (size_t)b * a.nw;
+  bool act = bit0 < z && pos < bound;
+  const int base = pos >> 5;
+  if (act) {
+#pragma unroll
+    for (int i = 0; i < kStage; ++i)
+      stage[i * kWalkThreads] = word(s, a.nw, base + i);
   }
-
-  const uint32_t* s = words + (size_t)b * nw;
-  bool act = live && pos < bound;
   int j = 0;
-  for (; j < ST && act; ++j) {
-    const uint32_t w = window32(s, nw, pos);
-    const int e = lut_s[w & 0xFFF];
+  for (; j < a.ST && act; ++j) {
+    const int sh = pos & 31, k = (pos >> 5) - base;
+    uint32_t w0, w1;
+    if (k + 1 < kStage) {
+      w0 = stage[k * kWalkThreads];
+      w1 = stage[(k + 1) * kWalkThreads];
+    } else {
+      w0 = word(s, a.nw, base + k);
+      w1 = word(s, a.nw, base + k + 1);
+    }
+    const uint32_t w = (w0 >> sh) | ((w1 << (31 - sh)) << 1);  // no >> 32
+    const int e = lut[w & 0xFFF];
     const int sym = e & 511, clen = (e >> 9) & 15, nextra = (e >> 13) & 7;
     const bool is_m = sym > 256 && sym <= 285;
     const int extra = (int)((w >> clen) & ((1u << nextra) - 1u));
@@ -108,11 +144,11 @@ walk8_pass_kernel(const uint32_t* __restrict__ words, int nw,
     const int tok = clen + (is_m ? nextra + 1 : 0) + (two ? l2 : 0);
     const int outlen =
         (sym < 256 ? 1 : (is_m ? ((e >> 16) & 0x1FF) + extra : 0)) + two;
-    const size_t r = row0 + (size_t)j * NC;
-    posr[r] = pos;
-    raw0[r] = sym | (stop ? 0 : 1 << 9) | (outlen << 10) | (clen << 19) |
-              (is_m ? 1 << 23 : 0);
-    raw1[r] = two ? (((e >> 16) & 0xFF) | 0x100) : 0;
+    const size_t r = row0 + (size_t)j * a.NC;
+    a.posr[r] = pos;
+    a.raw0[r] = sym | (stop ? 0 : 1 << 9) | (outlen << 10) | (clen << 19) |
+                (is_m ? 1 << 23 : 0);
+    a.raw1[r] = two ? (((e >> 16) & 0xFF) | 0x100) : 0;
     if (stop) {
       act = false;
     } else {
@@ -120,27 +156,245 @@ walk8_pass_kernel(const uint32_t* __restrict__ words, int nw,
       act = pos < bound;
     }
   }
-  exit_out[lane] = pos;
-  nst[lane] = j;
-  ovf[lane] = act ? 1 : 0;
+  a.nst[lane] = j;
+  a.ovf[lane] = act ? 1 : 0;
+  return pos;
+}
+
+// Whether the last walk of lane (b, c) passed through pos within its first
+// kMemb steps: then the walk from pos is that walk's tail, with its exit.
+// The rows are read eight at a time, their loads issued together.
+__device__ bool recorded(const WalkArgs& a, int b, int c, int pos) {
+  const size_t row0 = (size_t)b * a.ST * a.NC + c;
+  const int top = min(kMemb, a.ST) - 1;
+  const int m = min(top + 1, a.nst[(size_t)b * a.NC + c]);
+  bool hit = false;
+  for (int j0 = 0; j0 < m; j0 += 8) {
+    int p[8], r0[8], r1[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const size_t r = row0 + (size_t)min(j0 + u, top) * a.NC;
+      p[u] = a.posr[r];
+      r0[u] = a.raw0[r];
+      r1[u] = a.raw1[r];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      hit |= j0 + u < m && (p[u] == pos || (r1[u] != 0 &&
+                                            p[u] + ((r0[u] >> 19) & 15) == pos));
+  }
+  return hit;
+}
+
+// The converged fronts live in ctl in three rotating slots of B words
+// each: the front phase after pass k writes slot k % 3, and it and the
+// lanes of pass k read slot (k + 2) % 3, the phase before it.  Block 0
+// resets slots 0 and 1 at the start and slot (k + 1) % 3 during pass k's
+// lanes, behind the barrier that ends its last reader, the front phase
+// after pass k - 1.
+struct Fronts {
+  int* nf;    // the new front: the first lane past the old one whose entry
+              // is not its predecessor's exit (NC: none)
+  int* ov;    // the first live overflowing lane at or past the old front
+  int* done;  // images stopped, stored a pass after the decision
+};
+
+__device__ __forceinline__ Fronts fronts(const WalkArgs& a) {
+  int* nf = a.ctl + 4;
+  return {nf, nf + 3 * a.B, nf + 6 * a.B};
+}
+
+__device__ __forceinline__ void reset_slot(const WalkArgs& a, int s) {
+  const Fronts f = fronts(a);
+  for (int b = threadIdx.x; b < a.B; b += kWalkThreads) {
+    f.nf[s * a.B + b] = a.NC;
+    f.ov[s * a.B + b] = INT_MAX;
+  }
+}
+
+// Whether image b's overflow was decided by the front phase of slot s or
+// before it.  The new lanes between the old front and the new one are
+// final; an overflow among them decides the image.
+__device__ __forceinline__ bool stopped(const WalkArgs& a, int b, int s) {
+  const Fronts f = fronts(a);
+  return __ldcg(f.done + b) ||
+         __ldcg(f.ov + s * a.B + b) < __ldcg(f.nf + s * a.B + b);
+}
+
+// The front phase after pass k, whose exits are `ex`, over the block's
+// tiles [t0, t1): each warp takes the first lane past the old front whose
+// entry is not its predecessor's exit, and the first live overflowing lane
+// at or past the old front, and the grid reduces both per image with
+// atomicMin (the lanes of a warp are one image's, in order).  The old
+// front is 0 after pass 0: lane 0 is final then.
+__device__ void front_phase(const WalkArgs& a, int t0, int t1, const int* ex,
+                            int k) {
+  const Fronts f = fronts(a);
+  const int s = k % 3, sp = (k + 2) % 3;
+  const int lead = threadIdx.x & 31;
+  for (int t = t0; t < t1; ++t) {
+    const int b = t / a.tpi;  // one image a tile
+    const int c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
+    const size_t lane = (size_t)b * a.NC + c;
+    bool bad = false, over = false;
+    if (c < a.NC && !(k > 0 && stopped(a, b, sp))) {
+      const int f0 = k > 0 ? __ldcg(f.nf + sp * a.B + b) : 0;
+      bad = c > f0 && __ldcg(a.ent + lane) != __ldcg(ex + lane - 1);
+      over = c >= f0 && c * kChunkBits < __ldg(a.zl8 + b) &&
+             __ldcg(a.ovf + lane) != 0;
+    }
+    const unsigned mb = __ballot_sync(0xffffffffu, bad);
+    const unsigned mo = __ballot_sync(0xffffffffu, over);
+    if (mb && lead == __ffs(mb) - 1) atomicMin(f.nf + s * a.B + b, c);
+    if (mo && lead == __ffs(mo) - 1) atomicMin(f.ov + s * a.B + b, c);
+  }
+}
+
+__global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
+  // shared memory: the staged stream words, then the LUTs
+  extern __shared__ int smem[];
+  uint32_t* stage = (uint32_t*)smem + threadIdx.x;
+  int* lut_s = smem + kStage * kWalkThreads;
+  cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x;
+  const int t0 = tile_begin(a.nt, blockIdx.x, G);
+  const int t1 = tile_begin(a.nt, blockIdx.x + 1, G);
+  const int b_first = t0 / a.tpi;
+  const int nl = min(a.nlut, (t1 - 1) / a.tpi - b_first + 1);
+  for (int i = threadIdx.x; i < nl * kLutWords; i += kWalkThreads)
+    lut_s[i] = __ldg(a.lut + (size_t)b_first * kLutWords + i);
+  if (a.abort && blockIdx.x == 0) {  // the slots of the phases after passes 0, 1
+    reset_slot(a, 0);
+    reset_slot(a, 1);
+  }
+  __syncthreads();
+  auto lut_of = [&](int b) {
+    return b - b_first < nl ? lut_s + (b - b_first) * kLutWords
+                            : a.lut + (size_t)b * kLutWords;
+  };
+  int* changed = a.ctl;
+  int* done = fronts(a).done;
+
+  // pass 0: every lane from its chunk boundary, lane 0 from p0
+  for (int t = t0; t < t1; ++t) {
+    const int b = t / a.tpi, c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
+    if (c >= a.NC) continue;
+    const int pos = c == 0 ? __ldg(a.p0 + b) : c * kChunkBits;
+    const size_t lane = (size_t)b * a.NC + c;
+    a.ent[lane] = pos;
+    a.ex0[lane] = walk(a, lut_of(b), stage, b, c, pos);
+  }
+  grid.sync();
+  if (a.abort) {
+    front_phase(a, t0, t1, a.ex0, 0);
+    grid.sync();
+  }
+
+  int passes = 1;
+  for (int k = 1; k <= a.NC + 1; ++k) {
+    const int* ex_in = (k & 1) ? a.ex0 : a.ex1;
+    int* ex_out = (k & 1) ? a.ex1 : a.ex0;
+    // the flag of pass k + 1 was last read before pass k - 1's barrier, and
+    // front slot (k + 1) % 3 before pass k - 1's front barrier
+    if (blockIdx.x == 0) {
+      if (threadIdx.x == 0) changed[(k + 1) % 3] = 0;
+      if (a.abort) reset_slot(a, (k + 1) % 3);
+    }
+    int moved = 0;
+    for (int t = t0; t < t1; ++t) {
+      const int b = t / a.tpi;
+      const int c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
+      if (c >= a.NC) continue;
+      const size_t lane = (size_t)b * a.NC + c;
+      int out = __ldcg(ex_in + lane);
+      if (a.abort && stopped(a, b, (k + 2) % 3)) {
+        if (c == 0) done[b] = 1;  // the slot that decided it is reset later
+      } else {
+        const int pos = c == 0 ? __ldg(a.p0 + b) : __ldcg(ex_in + lane - 1);
+        if (c * kChunkBits < __ldg(a.zl8 + b) && pos != a.ent[lane]) {
+          moved = 1;
+          a.ent[lane] = pos;
+          if (!recorded(a, b, c, pos))
+            out = walk(a, lut_of(b), stage, b, c, pos);
+        }
+      }
+      ex_out[lane] = out;
+    }
+    if (__syncthreads_or(moved) && threadIdx.x == 0) changed[k % 3] = 1;
+    grid.sync();
+    passes = k + 1;
+    if (__ldcg(changed + k % 3) == 0) break;  // the same word for all
+    if (a.abort) {
+      front_phase(a, t0, t1, ex_out, k);
+      grid.sync();
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[3] = passes;
+}
+
+// The most images any block's tile run spans on a grid of G blocks.
+int max_span(int nt, int tpi, int G) {
+  int span = 1;
+  for (int blk = 0; blk < G; ++blk) {
+    const int t0 = tile_begin(nt, blk, G), t1 = tile_begin(nt, blk + 1, G);
+    if (t1 > t0) span = std::max(span, (t1 - 1) / tpi - t0 / tpi + 1);
+  }
+  return span;
 }
 
 }  // namespace
 }  // namespace fpng
 
-// One walk pass over B images x NC lanes (first = 1: pass 0; exit_in is
-// then unread).  changed is set to 1 when any live lane's entry moved.
-extern "C" int fpng_walk8_pass(const int* words, int nw, const int* lut,
-                               const int* p0, const int* zl8, int B, int NC,
-                               int ST, int first, int* ent,
-                               const int* exit_in, int* exit_out, int* nst,
-                               int* ovf, int* posr, int* raw0, int* raw1,
-                               int* changed, void* stream) {
+// The whole walk over B images x NC lanes with ST step rows a lane, in one
+// cooperative launch.  ex0, ex1 (B, NC) are scratch; ctl (4 + 7B ints,
+// zeroed by the caller) gets the pass count at ctl[3].  info (host, 3
+// ints) gets the grid, the blocks per SM and the shared-memory LUT slots.
+// The grid is the co-resident limit for the launch's shared memory, capped
+// by the tiles; a launch the card refuses returns its error.
+extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
+                          const int* p0, const int* zl8, int B, int NC,
+                          int ST, int abort_on_overflow, int* ent, int* ex0,
+                          int* ex1, int* nst, int* ovf, int* posr, int* raw0,
+                          int* raw1, int* ctl, int* info, void* stream) {
   using namespace fpng;
   if (B <= 0 || NC <= 0) return 0;
-  const dim3 grid((NC + kWalkThreads - 1) / kWalkThreads, B);
-  walk8_pass_kernel<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)words, nw, lut, p0, zl8, NC, ST, first, ent, exit_in,
-      exit_out, nst, ovf, posr, raw0, raw1, changed);
+  int dev = 0, sms = 0, occ = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int tpi = (NC + kWalkThreads - 1) / kWalkThreads;
+  if ((long long)B * tpi >= 1LL << 31) return (int)cudaErrorInvalidValue;
+  const int nt = B * tpi;
+  // more LUT slots cost occupancy, and fewer blocks span more images:
+  // grow the slots until every block's images fit (or kMaxLuts)
+  int nlut = 1, G = 0;
+  size_t smem = 0;
+  for (;;) {
+    smem = ((size_t)nlut * kLutWords + kStage * kWalkThreads) * sizeof(int);
+    e = cudaFuncSetAttribute(walk8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, walk8_kernel,
+                                                        kWalkThreads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (occ <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    G = (int)std::min<long long>((long long)occ * sms, nt);
+    const int need = std::min(max_span(nt, tpi, G), kMaxLuts);
+    if (need <= nlut) break;
+    nlut = need;
+  }
+  info[0] = G;
+  info[1] = occ;
+  info[2] = nlut;
+  WalkArgs a{(const uint32_t*)words, lut, p0, zl8, nw, B, NC, ST, tpi, nt,
+             abort_on_overflow, nlut, ent, ex0, ex1, nst, ovf, posr, raw0,
+             raw1, ctl};
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel((const void*)walk8_kernel, dim3(G),
+                                  dim3(kWalkThreads), args, smem,
+                                  (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -37,10 +37,10 @@ _SIGNATURES = {
     "fpng_crc_words": [_P, _P, _P, _P, _I, _I, _P, _P],
     # vals, offsets, B, N, num_words, words, stream
     "fpng_deposit": [_P, _P, _I, _I, _I, _P, _P],
-    # words, nw, lut, p0, zl8, B, NC, ST, first, ent, exit_in, exit_out,
-    # nst, ovf, posr, raw0, raw1, changed, stream
-    "fpng_walk8_pass": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _P, _P],
+    # words, nw, lut, p0, zl8, B, NC, ST, abort_on_overflow, ent, ex0,
+    # ex1, nst, ovf, posr, raw0, raw1, ctl, info (host), stream
+    "fpng_walk8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                   _P, _P, _P, _P, _P, _P],
     # posr, raw0, raw1, ST, nst, e_fin, out0, B, NC, k8, h, bpl, c, meta,
     # metb, chk, stream
     "fpng_finalize8": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -199,8 +199,9 @@ def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
 def _decode_launch(pngs: list[bytes], desired_channels: int, device):
     """Host container/header parse, device decode launch and the start of
     its readback (transfer.start_readback).  Returns opaque state for
-    _decode_finish_host.  The walks read a pass flag back each fixpoint
-    pass, so the device decode itself has run by the time this returns."""
+    _decode_finish_host.  Each walk is one launch that the host does not
+    wait on; the launch waits only for the walk's single readback (steps,
+    passes, overflow), which the step trim needs."""
     from ..golden import convert_channels, decode_stored
 
     n = len(pngs)

@@ -10,7 +10,8 @@ lane buckets, 23-bit narrow records, bpl_pad row padding, the k8 cache) is
 TPU layout.  So here:
 
   B8 walk_fix          kernel B3's walk and fixpoint (csrc/walk8.cu) at
-                       ST = ST8, over n_chunks(zlib_len_max) lanes
+                       ST = ST8, over n_chunks(zlib_len_max) lanes, with
+                       no image stopped at its first overflow
   epilogue             ops/walk8.walk_offsets
   B9 finalize_records  kernel B4's finalize (csrc/finalize8.cu) over the
                        trimmed k8 <= ST8 rows
@@ -23,34 +24,40 @@ at ST8 rows); a CUDA tensor launches the kernels or raises.
 
 from __future__ import annotations
 
+import torch
+
 from . import walk8 as W
 
 ST8 = W.S + 24  # step rows a lane: one step a bit, plus the token tail
 
 
 def walk_fix_plain(words, lut, p0, zl8, *, n_chunks: int):
-    """Plain torch version of kernel B8: walk_fix8_plain at ST8 rows."""
-    return W.walk_fix8_plain(words, lut, p0, zl8, n_chunks=n_chunks,
-                             maxit=ST8 // 8)
+    """Plain torch version of kernel B8: B3's walk and fixpoint at ST8
+    rows, without the stop at the first converged overflow."""
+    return W.fixpoint_plain(words, lut, p0, zl8, n_chunks=n_chunks, ST=ST8,
+                            abort_on_overflow=False)[0]
 
 
 def walk_fix(words, lut, p0, zl8, *, n_chunks: int):
     """Kernel B8: the PK=1 walk + entry fixpoint, with walk_fix8's
-    contract at ST8 step rows a lane.  A lane of a valid stream never
-    fills them, so the overflow flag it returns is not read.
+    contract at ST8 step rows a lane, but no image stops early: every
+    image runs to convergence.  A lane of a valid stream never fills its
+    rows, so the overflow flag it returns is not read.
 
-    A CUDA tensor launches csrc/walk8.cu once per pass; `walk_fix.launches`
-    counts the launches.
+    A CUDA tensor launches csrc/walk8.cu once for the whole walk;
+    `walk_fix.launches` counts the launches and `walk_fix.passes` the
+    passes that decode_kernel_pk1 reads back.
     """
     if words.device.type == "cpu":
         return walk_fix_plain(words, lut, p0, zl8, n_chunks=n_chunks)
     out = W.walk_cuda("walk_fix", words, lut, p0, zl8, n_chunks=n_chunks,
-                      ST=ST8)
-    walk_fix.launches += out[6]
+                      ST=ST8, abort_on_overflow=False)
+    walk_fix.launches += 1
     return out
 
 
 walk_fix.launches = 0
+walk_fix.passes = 0
 
 
 # the plain torch version of kernel B9 is B4's, which takes any k8
@@ -85,11 +92,13 @@ def decode_kernel_pk1(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
 
     Same inputs as ops/walk8.decode_kernel8.  Returns (imgs (B, h, w, c)
     uint8, ok (B,) bool); it has no capacity overflow.  One device->host
-    readback (the step trim) besides the fixpoint's changed flags.
+    readback: the step trim and the passes (added to walk_fix.passes).
     """
-    records, e_fin, out0, steps, _, _ = W.walk_offsets(
+    records, e_fin, out0, steps, _, passes = W.walk_offsets(
         walk_fix, stream, lut, p0, zlib_len,
         n_chunks=W.n_chunks(zlib_len_max))
-    k8 = W.trim_steps(int(steps), ST8)
+    diag = torch.stack([steps.to(torch.int32), passes]).cpu()
+    walk_fix.passes += int(diag[1])
+    k8 = W.trim_steps(int(diag[0]), ST8)
     return W.finish_decode(finalize_records, records, e_fin, out0, zlib_len,
                            k8=k8, h=h, w=w, c=c)

@@ -28,9 +28,12 @@ chunks and one lane walks each chunk:
 
 Each lane has 8 * maxit step slots (ST = 96).  A stream that needs more
 steps than that in one chunk (under ~5.3 bits a step) sets the overflow
-flag, and decode_kernel8 returns None: the caller decodes the batch on the
-PK=1 walk (ops/specdec_tpu.py), which runs the same kernels at worst-case
-capacity through walk_cuda, walk_offsets, finalize_cuda and finish_decode.
+flag; B3 stops that image at its first converged overflow, and
+decode_kernel8 returns None: the caller decodes the batch on the PK=1
+walk (ops/specdec_tpu.py), which runs the same kernels at worst-case
+capacity, without the stop, through walk_cuda, walk_offsets,
+finalize_cuda and finish_decode.  The whole walk is one launch; the host
+reads nothing back until the epilogue's single readback.
 
 Records are step-major, (B, ST, NC): lane c's step j sits at [b, j, c], so
 the lanes of a warp read and write neighbouring words.  The Pallas
@@ -45,6 +48,7 @@ tensor, or raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -139,11 +143,30 @@ def _walk_plain(words64, lut64, ent, bound, act, posr, raw0, raw1):
     return pos, nst, act
 
 
-def walk_fix8_plain(words, lut, p0, zl8, *, n_chunks: int,
-                    maxit: int = MAXIT):
-    """Plain torch version of kernel B3 (same contract as walk_fix8)."""
+def _advance_front(front, done, ent, ex, ovf, live):
+    """The converged front after a pass: lanes below front[b] are final
+    (their entry never changes again).  The lane at the old front is final
+    now, since its predecessor was final a pass earlier; each later lane c
+    is final while entry[c] == exit[c-1].  An image whose newly final lanes
+    include a live overflowing one is done: its overflow is decided."""
+    NC = ent.shape[1]
+    c = torch.arange(NC, device=ent.device)[None]
+    ok = torch.ones_like(live)
+    ok[:, 1:] = ent[:, 1:] == ex[:, :-1]
+    stop = torch.where((c > front[:, None]) & ~ok, c, NC).amin(dim=1)
+    fresh = (c >= front[:, None]) & (c < stop[:, None])
+    return stop, done | (fresh & ovf & live).any(dim=1)
+
+
+def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
+                   abort_on_overflow: bool):
+    """The walk and fixpoint of kernels B3 and B8 in torch ops, with ST step
+    rows a lane.  Returns walk_fix8's seven outputs and stopped (B,) int32:
+    for an image stopped at its first converged overflow (only with
+    abort_on_overflow), the pass after which it stopped, counting pass 0
+    as 1; 0 for an image that ran on."""
     B = words.shape[0]
-    NC, ST = n_chunks, 8 * maxit
+    NC = n_chunks
     dev = words.device
     words64 = torch.nn.functional.pad(words.to(torch.int64) & MASK32, (0, 2))
     lut64 = lut.to(torch.int64) & MASK32
@@ -156,13 +179,19 @@ def walk_fix8_plain(words, lut, p0, zl8, *, n_chunks: int,
     ent[:, :1] = p0
     ex, nst, ovf = _walk_plain(words64, lut64, ent, bound,
                                live & (ent < bound), posr, raw0, raw1)
+    front = torch.zeros(B, dtype=torch.int64, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    stopped = torch.zeros(B, dtype=torch.int32, device=dev)
     passes = 1
+    if abort_on_overflow:
+        front, done = _advance_front(front, done, ent, ex, ovf, live)
+        stopped = torch.where(done & (stopped == 0), passes, stopped)
     M = min(_MEMB, ST)
     rows = torch.arange(M, device=dev)[None, :, None]
     for _ in range(NC + 1):
         passes += 1
         e_new = torch.cat([p0, ex[:, :-1]], dim=1)
-        chg = (e_new != ent) & live
+        chg = (e_new != ent) & live & ~done[:, None]
         if not bool(chg.any()):
             break
         en = e_new[:, None]
@@ -177,9 +206,20 @@ def walk_fix8_plain(words, lut, p0, zl8, *, n_chunks: int,
         ex = torch.where(wm, ex2, ex)
         nst = torch.where(wm, nst2, nst)
         ovf = torch.where(wm, ovf2, ovf)
+        if abort_on_overflow:
+            front, done = _advance_front(front, done, ent, ex, ovf, live)
+            stopped = torch.where(done & (stopped == 0), passes, stopped)
     i32 = torch.int32
     return (ent.to(i32), nst.to(i32), ovf, posr.to(i32), raw0.to(i32),
-            raw1.to(i32), passes)
+            raw1.to(i32), torch.tensor(passes, dtype=i32, device=dev)), \
+        stopped
+
+
+def walk_fix8_plain(words, lut, p0, zl8, *, n_chunks: int,
+                    maxit: int = MAXIT):
+    """Plain torch version of kernel B3 (same contract as walk_fix8)."""
+    return fixpoint_plain(words, lut, p0, zl8, n_chunks=n_chunks,
+                          ST=8 * maxit, abort_on_overflow=True)[0]
 
 
 def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
@@ -191,27 +231,39 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
     nst, ovf, posr, raw0, raw1, passes): per-lane converged entry, steps
     recorded and overflow flag (B, NC); step-major records (B, ST, NC)
     int32 - rows at or past a lane's nst are unspecified; and the number
-    of walk passes (pass 0 plus every fixpoint pass, the last of which
-    finds no change).
+    of walk passes as a 0-dim int32 tensor on the input's device (pass 0
+    plus every fixpoint pass, the last of which finds no change).
 
-    A CUDA tensor launches csrc/walk8.cu once per pass, reading back one
-    changed flag after each; `walk_fix8.launches` counts the launches.
+    An image stops at its first converged overflow: once a lane that can
+    no longer change (every lane before it converged) has overflowed, the
+    image's overflow is decided and its lanes stop re-walking.  On such an
+    image only the overflow flags are defined; every other image runs on
+    to convergence, so its outputs do not depend on the abort.
+
+    A CUDA tensor launches csrc/walk8.cu once for the whole walk; nothing
+    is read back.  `walk_fix8.launches` counts the launches and
+    `walk_fix8.passes` the passes that decode_kernel8 reads back.
     """
     if words.device.type == "cpu":
         return walk_fix8_plain(words, lut, p0, zl8, n_chunks=n_chunks,
                                maxit=maxit)
     out = walk_cuda("walk_fix8", words, lut, p0, zl8, n_chunks=n_chunks,
-                    ST=8 * maxit)
-    walk_fix8.launches += out[6]
+                    ST=8 * maxit, abort_on_overflow=True)
+    walk_fix8.launches += 1
     return out
 
 
 walk_fix8.launches = 0
+walk_fix8.passes = 0
 
 
-def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int):
-    """Run csrc/walk8.cu's walk and fixpoint with ST step rows a lane: one
-    launch per pass, so passes = launches (walk_fix8's contract)."""
+def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
+              abort_on_overflow: bool):
+    """Run csrc/walk8.cu's walk and fixpoint with ST step rows a lane, in
+    one cooperative launch (walk_fix8's contract; the stop at the first
+    converged overflow only with abort_on_overflow).  The launch's grid,
+    blocks per SM and shared-memory LUT slots are left in
+    `walk_cuda.launch`."""
     K.require_cuda(name, words, lut, p0, zl8)
     B, nw = words.shape
     NC = n_chunks
@@ -222,29 +274,23 @@ def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int):
     dev = words.device
     posr, raw0, raw1 = (torch.empty((B, ST, NC), dtype=torch.int32,
                                     device=dev) for _ in range(3))
-    ent, nst, ovf, ex_a, ex_b = (torch.empty((B, NC), dtype=torch.int32,
-                                             device=dev) for _ in range(5))
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    lib, sp = K.lib(), K.stream_ptr(dev)
+    ent, nst, ovf, ex0, ex1 = (torch.empty((B, NC), dtype=torch.int32,
+                                           device=dev) for _ in range(5))
+    # changed flags (3), passes, then per image three front slots of the
+    # new front and the first overflow, and the stop flag
+    ctl = torch.zeros(4 + 7 * B, dtype=torch.int32, device=dev)
+    info = (ctypes.c_int * 3)()
+    K.check(K.lib().fpng_walk8(
+        words.data_ptr(), nw, lut.data_ptr(), p0.data_ptr(), zl8.data_ptr(),
+        B, NC, ST, int(abort_on_overflow), ent.data_ptr(), ex0.data_ptr(),
+        ex1.data_ptr(), nst.data_ptr(), ovf.data_ptr(), posr.data_ptr(),
+        raw0.data_ptr(), raw1.data_ptr(), ctl.data_ptr(),
+        ctypes.addressof(info), K.stream_ptr(dev)), "fpng_walk8")
+    walk_cuda.launch = dict(zip(("grid", "blocks_per_sm", "lut_slots"), info))
+    return ent, nst, ovf != 0, posr, raw0, raw1, ctl[3]
 
-    def launch(first, ex_in, ex_out):
-        K.check(lib.fpng_walk8_pass(
-            words.data_ptr(), nw, lut.data_ptr(), p0.data_ptr(),
-            zl8.data_ptr(), B, NC, ST, first, ent.data_ptr(),
-            ex_in.data_ptr(), ex_out.data_ptr(), nst.data_ptr(),
-            ovf.data_ptr(), posr.data_ptr(), raw0.data_ptr(),
-            raw1.data_ptr(), changed.data_ptr(), sp), "fpng_walk8_pass")
 
-    launch(1, ex_a, ex_a)
-    passes = 1
-    for _ in range(NC + 1):
-        changed.zero_()
-        launch(0, ex_a, ex_b)
-        passes += 1
-        ex_a, ex_b = ex_b, ex_a
-        if not int(changed.item()):
-            break
-    return ent, nst, ovf != 0, posr, raw0, raw1, passes
+walk_cuda.launch = None
 
 
 # ---------------------------------------------------------------------------
@@ -440,16 +486,17 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
 
     Same inputs as ops/specdec.decode_kernel.  Returns (imgs (B, h, w, c)
     uint8, ok (B,) bool), or None when a lane overflowed its step
-    capacity (the caller decodes the batch on the chunked path).  One
-    device->host readback (steps and overflow) besides the fixpoint's
-    changed flags.
+    capacity (the caller decodes the batch on the PK=1 walk).  One
+    device->host readback: steps, passes (added to walk_fix8.passes) and
+    the overflow flags.
     """
-    records, e_fin, out0, steps, ovf, _ = decode_walk8(
+    records, e_fin, out0, steps, ovf, passes = decode_walk8(
         stream, lut, p0, zlib_len, n_chunks=n_chunks(zlib_len_max),
         maxit=maxit)
-    diag = torch.cat([steps.view(1).to(torch.int32),
+    diag = torch.cat([steps.view(1).to(torch.int32), passes.view(1),
                       ovf.to(torch.int32)]).cpu()
-    if bool(diag[1:].any()):
+    walk_fix8.passes += int(diag[1])
+    if bool(diag[2:].any()):
         return None
     k8 = trim_steps(int(diag[0]), records[0].shape[1])
     return finish_decode(finalize_records8, records, e_fin, out0, zlib_len,

@@ -195,7 +195,9 @@ def test_walk8_kernels_match_plain(case):
                       n_chunks=nc)
     torch.cuda.synchronize()
     want = W.walk_fix8_plain(words, luts, p0, zl8, n_chunks=nc)
-    assert got[6] == want[6] > 1 and W.walk_fix8.launches == n0 + got[6]
+    # one launch for the whole walk; the pass count stays on the card
+    assert W.walk_fix8.launches == n0 + 1
+    assert int(got[6]) == int(want[6]) > 1
     for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf
         assert torch.equal(g.cpu(), w_)
     if case == "multiblock":
@@ -307,6 +309,34 @@ def _overflowing_batch():
         pack_streams(metas), (np.uint8, np.int32, np.int32, np.int32))]
 
 
+def test_walk8_stops_an_overflowing_image_beside_a_converging_one():
+    """B3 on the batch whose image 0 overflows walk8: the kernel stops it at
+    its first converged overflow as the plain version does (same overflow
+    flags, same passes) and gives image 1, which converges, every output
+    of the plain version."""
+    _, _, (stream, luts, p0, zl) = _overflowing_batch()
+    nc = W.n_chunks(int(zl.max()))
+    words, zl8 = W.stream_words(stream), zl * 8
+    n0 = W.walk_fix8.launches
+    got = W.walk_fix8(words.cuda(), luts.cuda(), p0.cuda(), zl8.cuda(),
+                      n_chunks=nc)
+    torch.cuda.synchronize()
+    assert W.walk_fix8.launches == n0 + 1
+    want, stopped = W.fixpoint_plain(words, luts, p0, zl8, n_chunks=nc,
+                                     ST=8 * W.MAXIT, abort_on_overflow=True)
+    assert (stopped > 0).tolist() == [True, False]
+    assert int(got[6]) == int(want[6])
+    live = W._lane_geometry(zl8, nc)[1]
+    assert torch.equal((got[2].cpu() & live).any(dim=1),
+                       (want[2] & live).any(dim=1))
+    for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf of image 1
+        assert torch.equal(g[1].cpu(), w_[1])
+    rows = torch.arange(8 * W.MAXIT)[:, None] < want[1][1][None]
+    for g, w_ in zip(got[3:6], want[3:6]):
+        assert torch.equal(torch.where(rows, g[1].cpu(), 0),
+                           torch.where(rows, w_[1], 0))
+
+
 def test_pk1_kernels_match_plain():
     imgs, _, (stream, luts, p0, zl) = _overflowing_batch()
     B, h, w, c = imgs.shape
@@ -319,7 +349,8 @@ def test_pk1_kernels_match_plain():
                       n_chunks=nc)
     torch.cuda.synchronize()
     want = PK.walk_fix_plain(words, luts, p0, zl8, n_chunks=nc)
-    assert got[6] == want[6] > 1 and PK.walk_fix.launches == n0 + got[6]
+    assert PK.walk_fix.launches == n0 + 1
+    assert int(got[6]) == int(want[6]) > 1
     assert got[3].shape[1] == PK.ST8
     for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf
         assert torch.equal(g.cpu(), w_)

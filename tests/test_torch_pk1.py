@@ -32,7 +32,7 @@ from fpng_tpu_torch.ops import specdec_tpu as TS
 from fpng_tpu_torch.ops import walk8 as TW
 from fpng_tpu_torch.ops.bitpack import scatter_packed16
 from fpng_tpu_torch.train import synthetic_corpus
-from tests.test_torch_walk8 import _pack
+from tests.test_torch_walk8 import _jacobi_reference, _pack, _walk_args
 
 LPI = 128
 PIECE = 16
@@ -190,3 +190,16 @@ def test_decode_batch_takes_pk1(chains, walk8, monkeypatch):
     assert TD.decode_batch.walk8_overflows == n0 + (walk8 == "1")
     assert TD.decode_batch.paths["pk1"] == k0 + 1
     assert TD.decode_batch.host_handoffs == h0
+
+
+def test_pk1_plain_walk_runs_every_image_to_convergence(chains):
+    """B8's plain walk has no stop at the first converged overflow: on the
+    batch whose image 0 overflows walk8 it gives the Jacobi loop's outputs
+    and pass count at ST8 rows, for both images."""
+    _, _, packed, _, t = chains
+    words, lut, p0, zl8, nc = _walk_args(packed)
+    got = TS.walk_fix(words, lut, p0, zl8, n_chunks=nc)
+    ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc, ST=TS.ST8)
+    assert int(got[6]) == ref[6] == int(t["passes"])
+    for a, b in zip(got[:6], ref[:6]):
+        assert torch.equal(a, b)

@@ -200,6 +200,160 @@ def test_overflow_flag_matches_jax():
     assert j["ovf"] and t["ovf"]
 
 
+def _jacobi_reference(words, lut, p0, zl8, *, n_chunks, ST):
+    """The walk and fixpoint as a plain Jacobi loop with no converged front
+    and no stop: entry[c] = exit[c-1] until nothing changes, re-walking a
+    lane whose new entry is not among its first 32 recorded positions."""
+    B, NC = words.shape[0], n_chunks
+    words64 = torch.nn.functional.pad(words.to(torch.int64) & TW.MASK32,
+                                      (0, 2))
+    lut64 = lut.to(torch.int64) & TW.MASK32
+    p0 = p0.to(torch.int64)[:, None]
+    bit0, live, bound = TW._lane_geometry(zl8, NC)
+    posr, raw0, raw1 = (torch.zeros((B, ST, NC), dtype=torch.int64)
+                        for _ in range(3))
+    ent = bit0.expand(B, NC).clone()
+    ent[:, :1] = p0
+    ex, nst, ovf = TW._walk_plain(words64, lut64, ent, bound,
+                                  live & (ent < bound), posr, raw0, raw1)
+    passes, M = 1, min(32, ST)
+    rows = torch.arange(M)[None, :, None]
+    for _ in range(NC + 1):
+        passes += 1
+        e_new = torch.cat([p0, ex[:, :-1]], dim=1)
+        chg = (e_new != ent) & live
+        if not bool(chg.any()):
+            break
+        en, pr = e_new[:, None], posr[:, :M]
+        hit = (pr == en) | \
+            ((raw1[:, :M] != 0) & (pr + ((raw0[:, :M] >> 19) & 15) == en))
+        member = (hit & (rows < nst[:, None])).any(dim=1)
+        ent = torch.where(chg, e_new, ent)
+        wm = chg & ~member
+        ex2, nst2, ovf2 = TW._walk_plain(words64, lut64, ent, bound,
+                                         wm & (ent < bound), posr, raw0, raw1)
+        ex = torch.where(wm, ex2, ex)
+        nst = torch.where(wm, nst2, nst)
+        ovf = torch.where(wm, ovf2, ovf)
+    i32 = torch.int32
+    return (ent.to(i32), nst.to(i32), ovf, posr.to(i32), raw0.to(i32),
+            raw1.to(i32), passes)
+
+
+def _walk_args(packed):
+    """Packed streams -> the walk's inputs (words, lut, p0, zl8, NC)."""
+    stream, luts, p0, zl = packed
+    return (TW.stream_words(torch.from_numpy(stream)),
+            torch.from_numpy(luts.view(np.int32)), torch.from_numpy(p0),
+            torch.from_numpy(zl * 8), TW.n_chunks(int(zl.max())))
+
+
+def _image_ovf(out, zl8):
+    live = TW._lane_geometry(zl8, out[0].shape[1])[1]
+    return (out[2] & live).any(dim=1).tolist()
+
+
+def _front_case(name):
+    if name == "multiblock":  # one 256 x 256 tile: ~2 600 lanes, 21 tiles
+        imgs = list(synthetic_corpus(3, size=256))[18][None]
+        return _pack(T.encode_batch(imgs, 0, device="cpu"))
+    return _case(name)[1]
+
+
+@pytest.mark.parametrize("case", ["rgb_1pass", "rgba_2pass", "multiblock"])
+def test_front_rule_leaves_converging_walks_unchanged(case):
+    """On streams that fit walk8, the walk with the converged front and the
+    stop gives exactly the Jacobi loop's outputs and pass count."""
+    words, lut, p0, zl8, nc = _walk_args(_front_case(case))
+    out, stopped = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc,
+                                     ST=8 * TW.MAXIT, abort_on_overflow=True)
+    ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc,
+                            ST=8 * TW.MAXIT)
+    assert not stopped.any() and not any(_image_ovf(ref, zl8))
+    assert int(out[6]) == ref[6] > 1
+    for a, b in zip(out[:6], ref[:6]):
+        assert torch.equal(a, b)
+
+
+def _jax_walk8_ovf(packed, maxit=JW.MAXIT):
+    """fpng_tpu's walk8 overflow flag for a batch (its diag bit 30)."""
+    stream, luts, p0, zl = packed
+    nc_pad, lpi = JW.plan_tpu8(int(zl.max()), LPI)
+    diag = JW._decode_walk8(
+        jnp.asarray(stream), jnp.asarray(luts), jnp.asarray(p0),
+        jnp.asarray(zl), nc_pad=nc_pad, lpi=lpi, maxit=maxit,
+        interpret=True)[-1]
+    return bool(int(diag) & (1 << 30))
+
+
+def test_overflowing_image_stops_beside_a_converging_one():
+    """[tiles[6], tiles[9]] (2-pass, 4 channels): image 0 overflows walk8.
+    It stops at its first converged overflow after 2 passes, where the
+    Jacobi loop runs 16; image 1 runs to convergence, and its
+    entries, offsets and pixels equal its decode on its own."""
+    tiles = list(synthetic_corpus(4, size=32))
+    imgs = np.stack([tiles[6], tiles[9]])
+    pngs = [golden.encode_image_to_memory(i, 32, 32, 4, T.FPNG_ENCODE_SLOWER)
+            for i in imgs]
+    packed = _pack(pngs)
+    words, lut, p0, zl8, nc = _walk_args(packed)
+    out, stopped = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc,
+                                     ST=8 * TW.MAXIT, abort_on_overflow=True)
+    ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc,
+                            ST=8 * TW.MAXIT)
+    assert stopped.tolist() == [2, 0] and int(out[6]) == 3 and ref[6] == 16
+    assert _image_ovf(out, zl8) == _image_ovf(ref, zl8) == [True, False]
+    for a, b in zip(out[:6], ref[:6]):
+        assert torch.equal(a[1], b[1])
+    assert [_jax_walk8_ovf(_pack([p])) for p in pngs] == [True, False]
+
+    args = [torch.from_numpy(a) for a in packed]
+    records, e_fin, out0, _, ovf, _ = TW.decode_walk8(
+        *args, n_chunks=nc)
+    assert ovf.tolist() == [True, False]
+    solo = _pack(pngs[1:])
+    s_rec, s_e, s_out0, _, s_ovf, _ = TW.decode_walk8(
+        *(torch.from_numpy(a) for a in solo),
+        n_chunks=TW.n_chunks(int(solo[3].max())))
+    n1 = s_e.shape[1]
+    assert not s_ovf.any()
+    assert torch.equal(e_fin[1:, :n1], s_e) and \
+        torch.equal(out0[1:, :n1], s_out0)
+    got, ok = TW.finish_decode(
+        TW.finalize_records8, [r[1:] for r in records], e_fin[1:], out0[1:],
+        args[3][1:], k8=8 * TW.MAXIT, h=32, w=32, c=4)
+    assert bool(ok.all()) and np.array_equal(got.numpy(), imgs[1:])
+
+
+@pytest.mark.parametrize("case, stop, ref_passes",
+                         [("maxit2", 1, 11), ("binary", 1, 44)])
+def test_overflowing_walk_stops(case, stop, ref_passes):
+    """test_overflow_flag_matches_jax's input at maxit=2, and a 2-pass
+    image of bytes in {0, 1} (chip_smoke.py's overflow image, 16 rows):
+    the walk stops the image at its first converged overflow after `stop`
+    passes, where the Jacobi loop runs `ref_passes`, with the overflow flag
+    of the Jacobi loop and of fpng_tpu's walk8."""
+    if case == "maxit2":
+        rng = np.random.default_rng(3)
+        img = np.cumsum(rng.integers(0, 2, (32, 32, 3)), axis=0) \
+            .astype(np.uint8)
+        maxit = 2
+    else:
+        img = np.random.default_rng(0).integers(0, 2, (16, 256, 3)) \
+            .astype(np.uint8)
+        maxit = TW.MAXIT
+    h, w, _ = img.shape
+    packed = _pack([golden.encode_image_to_memory(
+        img, w, h, 3, T.FPNG_ENCODE_SLOWER)])
+    words, lut, p0, zl8, nc = _walk_args(packed)
+    out, stopped = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc,
+                                     ST=8 * maxit, abort_on_overflow=True)
+    ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc, ST=8 * maxit)
+    assert stopped.tolist() == [stop] and ref[6] == ref_passes
+    assert _image_ovf(out, zl8) == _image_ovf(ref, zl8) == [True]
+    assert _jax_walk8_ovf(packed, maxit)
+
+
 def _overflowing_rgba():
     """A 2-pass 4-channel tile that needs more than 96 steps in a chunk."""
     img = list(synthetic_corpus(4, size=32))[6]
