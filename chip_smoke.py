@@ -11,9 +11,12 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      decode's shapes; B3-B6 on the decode of the headline corpus's own
      streams; B7 on the 32 bpp 1-pass corpus's cost-check inputs; B8 and
      B9 on the decode of the 24 bpp 2-pass corpus, which overflows
-     walk8), with CUDA-event times and a bytes/operations bound; then B3
-     once more on the 32 bpp 1-pass corpus, whose overflowing images it
-     stops at their first converged overflow (each walk is one launch);
+     walk8), with CUDA-event times and a bytes/operations bound; B2 is
+     the whole IDAT CRC, with the device activities of one
+     launch_assemble counted by torch.profiler; then B3 once more on the
+     32 bpp 1-pass corpus, whose overflowing images it stops at their
+     first converged overflow (each walk is one launch); B6 is held
+     against its plain version on every decode's raster below as well;
   4. drives encode_batch / decode_batch (and the single-image entry
      points) at the headline size, 128 x 256 x 256 x 3: the decode takes
      the walk8 path, every file is checked with zlib and the port's
@@ -28,6 +31,8 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      walk gate refusing as it does for a raster past 2^27 allocated
      slots, the same 32 images on the chunked decode (B10) and the
      overflow stream through chunked -> host;
+  large_raster_2g: encodes one 1 x 6144 x 7680 x 3 raster (141.6 M bytes,
+     past 2^27) and decodes it on the chunked decode;
   7. decodes corrupted streams against golden's statuses;
   probes: holds the probe kernels P1 (tools/prof_depparts, five modes) and
      P2 (tools/prof_int8mxu, int8 and bf16) bit-exact against their plain
@@ -40,6 +45,14 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
   bench: runs fpng_tpu_torch.bench at full size and checks its JSON line;
   cli: fpng_tpu_torch.cli's random-dims fuzz and its -f on a corrupted
      file.
+
+    python3 chip_smoke.py --expand
+
+times B6 alone (CUDA events, launches a call, held against expand_plain)
+on the walk8 decode rasters of the headline and 4K corpora, and prints no
+ok line.  It calls only functions whose contracts older checkouts share,
+so a copy of this file at the root of such a checkout times that
+checkout's B6 on the same rasters.
 
 The launch counters are set to 0 just before each path and read just
 after, to show that the path went through its kernels.  One line of
@@ -158,16 +171,23 @@ def is_stored(png):
 
 def phase_kernels(torch, imgs):
     """Each kernel against its plain version at the main path's shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
     import fpng_tpu_torch as T
-    from fpng_tpu_torch.models.encoder import _budget, _num_words, build_desc
+    from fpng_tpu_torch.models.encoder import (_budget, _num_words, build_desc,
+                                               encode_kernel, launch_assemble)
     from fpng_tpu_torch.ops import walk8 as W
+    from fpng_tpu_torch.ops.assemble import (idat_crc_words,
+                                             idat_crc_words_plain,
+                                             raw_idat_prefix)
     from fpng_tpu_torch.ops.bitpack import (deposit_bits, from_word32,
                                             scatter_bits, scatter_packed16,
                                             scatter_packed16_plain)
-    from fpng_tpu_torch.ops.checksum import crc_chunks, crc_chunks_plain
+    from fpng_tpu_torch.ops.checksum import _shift_tables, _word_bit_table
     from fpng_tpu_torch.ops.encfuse import (encode_bits_fused,
                                             encode_bits_plain)
     from fpng_tpu_torch.ops.expand import expand, expand_plain
+    from fpng_tpu_torch.ops.expand import tiling as expand_tiling
     from fpng_tpu_torch.ops.specdec import plan_chunks
     from fpng_tpu_torch.tables import one_pass_state
 
@@ -208,22 +228,62 @@ def phase_kernels(torch, imgs):
         bound=bound(4 * B * N + 4 * tbl.numel() + 4 * B * nw, 20 * B * N),
         shape=[B, N], num_words=nw)
 
-    # B2 on the corpus words, masked to each image's payload
+    # B2, the whole IDAT CRC, on the corpus words, masked to each image's
+    # payload, against idat_crc_words_plain (torch ops on the card: the
+    # parent's function) and, on 8 images, the plain version on the CPU
     words, total, _ = got
-    lo = torch.full((B,), len(st.prefix), dtype=torch.int64, device=dev)
+    adler = encode_kernel(torch.from_numpy(imgs).to(dev),
+                          st.codes.expand(B, -1), st.sizes.expand(B, -1),
+                          base, torch.full((B,), st.acc, dtype=torch.int32,
+                                           device=dev),
+                          torch.full((B,), st.nacc, dtype=torch.int32,
+                                     device=dev), num_chans=Cc,
+                          cost_check=False, num_words=nw)[3]
+    prefixes = [st.prefix] * B
+    plens = np.full(B, len(st.prefix), np.int64)
+    raw_ip = raw_idat_prefix(prefixes).astype(np.int64)
+    crc_args = (words, total, adler, plens, raw_ip)
+    n0 = idat_crc_words.launches
+    g2 = idat_crc_words(*crc_args)
+    check(idat_crc_words.launches == n0 + 1, "B2 is not one launch a call")
+    w2 = idat_crc_words_plain(*crc_args)
+    check(torch.equal(g2, w2), "B2 CRCs differ from plain")
+    cpu8 = idat_crc_words_plain(words[:8].cpu(), total[:8].cpu(),
+                                adler[:8].cpu(), plens[:8], raw_ip[:8])
+    check(torch.equal(g2[:8].cpu(), cpu8), "B2 CRCs differ from the CPU's")
     hi = (total.to(torch.int64) + 7) >> 3
-    g2 = crc_chunks(words, lo, hi)
-    w2 = crc_chunks_plain(words, lo, hi)
-    check(torch.equal(g2, w2), "B2 chunk registers differ from plain")
     K = nw // 1024
+    # the chunks whose bytes overlap [plen, tb): the only ones B2 reads
+    tb_np = hi.cpu().numpy()
+    live = np.maximum(np.minimum(-(-tb_np // 4096), K) - plens // 4096, 0)
+    live_chunks = int(live.sum())
+    launch_assemble(*crc_args[:3], prefixes)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        launch_assemble(*crc_args[:3], prefixes)
+        torch.cuda.synchronize()
+    # each device activity of one launch_assemble with its device time (the
+    # CUDA-event time below also holds the host's enqueue of the upload)
+    activities = [[e.name[:40], (e.time_range.end - e.time_range.start) / 1e3]
+                  for e in prof.events()
+                  if getattr(e, "device_type", None) ==
+                  torch.autograd.DeviceType.CUDA]
+    check(0 < len(activities) <= 3,
+          f"launch_assemble made {len(activities)} device activities")
     res["crc32_words_masked_raw"] = dict(
         max_abs_err=int((g2 - w2).abs().max()),
-        ms=cuda_ms(torch, lambda: crc_chunks(words, lo, hi), 20),
-        plain_ms=cuda_ms(torch, lambda: crc_chunks_plain(words, lo, hi), 5),
-        # words read, registers written; ~3 ops a byte (table lookup, xor,
-        # shift)
-        bound=bound(4 * B * nw + 4 * B * K, 12 * B * nw),
-        shape=[B, nw], chunks=K, odd_chunks=bool(K % 2))
+        ms=cuda_ms(torch, lambda: idat_crc_words(*crc_args), 20),
+        plain_ms=cuda_ms(torch, lambda: idat_crc_words_plain(*crc_args), 5),
+        launches_per_encode=len(activities), encode_activities=activities,
+        # the words of the live chunks read, the tables read once, 36 bytes
+        # an image of inputs and CRC; ~3 ops a live byte (table lookup,
+        # xor, shift)
+        bound=bound(4096 * live_chunks + 4 * (_word_bit_table().size +
+                                              _shift_tables().size) + 36 * B,
+                    3 * 4096 * live_chunks),
+        shape=[B, nw], chunks=K, odd_chunks=bool(K % 2),
+        live_chunks=live_chunks, buffer_chunks=B * K)
     check(K % 2 == 1, "the corpus word buffer has an odd chunk count")
 
     # B10 on decode-style records at the chunked decode's shape for this
@@ -244,18 +304,19 @@ def phase_kernels(torch, imgs):
     sym = torch.randint(0, 256, (B, n), generator=g, device=dev)
     vals = torch.where(lit, sym | 0x100, 0).to(torch.int32)
     nbits = lit.to(torch.int32) << 4
-    offs = (outp * 16).to(torch.int32)
+    # int32 slots with shift 4, as the chunked decode's records
+    slots = outp.to(torch.int32)
     dep_words = -(-(16 * (total_slots + 1)) // 32) + 1
-    g3 = deposit_bits(vals, nbits, offs, dep_words)
-    w3 = scatter_bits(vals, nbits, offs, dep_words)
+    g3 = deposit_bits(vals, nbits, slots, dep_words, shift=4)
+    w3 = scatter_bits(vals, nbits, outp * 16, dep_words)
     check(torch.equal(g3, w3), "B10 words differ from scatter_bits")
     res["deposit_bits"] = dict(
         max_abs_err=err(g3, w3),
-        ms=cuda_ms(torch, lambda: deposit_bits(vals, nbits, offs, dep_words),
-                   20),
+        ms=cuda_ms(torch, lambda: deposit_bits(vals, nbits, slots, dep_words,
+                                               shift=4), 20),
         plain_ms=cuda_ms(torch, lambda: scatter_bits(
-            vals, nbits, offs, dep_words), 5),
-        # vals + offsets read, words written; ~10 ops a unit
+            vals, nbits, outp * 16, dep_words), 5),
+        # vals and slots (4 bytes each) read, words written; ~10 ops a unit
         bound=bound(8 * B * n + 4 * B * dep_words, 10 * B * n),
         shape=[B, n], num_words=dep_words)
 
@@ -324,20 +385,18 @@ def phase_kernels(torch, imgs):
                     8 * meta.numel()),
         shape=[Bd, meta.shape[1]], n_slots=n_slots, lit_records=lit_records)
 
-    g7 = expand(g6, h=H, w=W_, c=Cc)
+    g7 = check_expand(torch, g6, imgs[device_decoded(pngs)],
+                      "the headline walk8 decode")
     w7 = expand_plain(g6, h=H, w=W_, c=Cc)
-    check(torch.equal(g7, w7), "B6 pixels differ from plain")
-    idx = [i for i, p in enumerate(pngs) if not is_stored(p)]
-    check(np.array_equal(g7.cpu().numpy(), imgs[idx]),
-          "B3-B6 chain pixels differ from the corpus")
     res["expand"] = dict(
         max_abs_err=masked_err(g7, w7),
         ms=cuda_ms(torch, lambda: expand(g6, h=H, w=W_, c=Cc), 20),
         plain_ms=cuda_ms(torch, lambda: expand_plain(g6, h=H, w=W_, c=Cc), 5),
-        # slots read, bytes written and re-read/re-written by the defilter
-        # count once; ~8 ops a slot
+        # slots read once, bytes written once; ~8 ops a slot
         bound=bound(3 * Bd * n_slots, 8 * Bd * n_slots),
-        shape=[Bd, H, W_, Cc])
+        shape=[Bd, H, W_, Cc], launches_per_call=1,
+        tiling=dict(zip(("rows", "strip", "bands", "strips"),
+                        expand_tiling(H, W_ * Cc))))
     return kernel_line(res)
 
 
@@ -407,8 +466,8 @@ def phase_walk8_overflow(torch, T, imgs):
     after which the plain version stopped each overflowing image."""
     from fpng_tpu_torch.ops import walk8 as W
 
-    Bd, _, (words, lut32, p0_32, zl8), nc = pack_batch(
-        torch, T.encode_batch(imgs, device=DEV))
+    pngs = T.encode_batch(imgs, device=DEV)
+    Bd, dec_args, (words, lut32, p0_32, zl8), nc = pack_batch(torch, pngs)
 
     def walk():
         return W.walk_fix8(words, lut32, p0_32, zl8, n_chunks=nc)
@@ -433,6 +492,10 @@ def phase_walk8_overflow(torch, T, imgs):
          ms=cuda_ms(torch, walk, 5),
          bound_ms=walk_bound(words, lut32, g, Bd, nc)[0],
          **walk_counts(W, g))
+    B, H, W_, Cc = imgs.shape
+    check_expand(torch, pk1_raster(torch, dec_args, nc, H, W_ * Cc, Cc),
+                 imgs[device_decoded(pngs)], "the PK=1 decode of the 32 bpp "
+                 "1-pass corpus")
 
 
 def kernel_line(res):
@@ -481,7 +544,6 @@ def phase_pk1(torch, T, imgs):
     from fpng_tpu_torch.ops import specdec_tpu as PK
     from fpng_tpu_torch.ops import walk8 as W
     from fpng_tpu_torch.ops.bitpack import scatter_packed16
-    from fpng_tpu_torch.ops.expand import expand
 
     B, H, W_, Cc = imgs.shape
     pngs = T.encode_batch(imgs, T.FPNG_ENCODE_SLOWER, device=DEV)
@@ -533,11 +595,87 @@ def phase_pk1(torch, T, imgs):
         shape=[Bd, k8, nc], read_rows=read_rows)
     raster = scatter_packed16(g5[0].reshape(Bd, -1), g5[1].reshape(Bd, -1),
                               H * W_ * Cc)
-    idx = [i for i, p in enumerate(pngs) if not is_stored(p)]
-    check(np.array_equal(expand(raster, h=H, w=W_, c=Cc).cpu().numpy(),
-                         imgs[idx]), "B8-B9 chain pixels differ from the "
-          "corpus")
+    check_expand(torch, raster, imgs[device_decoded(pngs)], "the PK=1 "
+                 "decode of the 24 bpp 2-pass corpus")
     return kernel_line(res)
+
+
+def device_decoded(pngs):
+    """Indices of the files that take a device decode (not stored)."""
+    return [i for i, p in enumerate(pngs) if not is_stored(p)]
+
+
+def check_expand(torch, raster, imgs, what):
+    """B6 on a decode's raster: one launch, bit-exact against expand_plain,
+    and the corpus's pixels."""
+    from fpng_tpu_torch.ops.expand import expand, expand_plain
+
+    B, H, W_, Cc = imgs.shape
+    n0 = expand.launches
+    got = expand(raster, h=H, w=W_, c=Cc)
+    check(expand.launches == n0 + 1, f"B6 on {what}: not one launch")
+    check(torch.equal(got, expand_plain(raster, h=H, w=W_, c=Cc)),
+          f"B6 on {what} differs from plain")
+    check(np.array_equal(got.cpu().numpy(), imgs),
+          f"B6 on {what}: pixels differ from the corpus")
+    return got
+
+
+def pk1_raster(torch, dec_args, nc, h, bpl, c):
+    """The PK=1 chain (B8, B9, B5) up to B6's input raster."""
+    from fpng_tpu_torch.ops import specdec_tpu as PK
+    from fpng_tpu_torch.ops import walk8 as W
+    from fpng_tpu_torch.ops.bitpack import scatter_packed16
+
+    records, e_fin, out0, steps, _, _ = W.walk_offsets(
+        PK.walk_fix, *dec_args, n_chunks=nc)
+    k8 = W.trim_steps(int(steps), PK.ST8)
+    meta, metb, _ = PK.finalize_records(*records, e_fin, out0, k8=k8, h=h,
+                                        bpl=bpl, c=c)
+    B = meta.shape[0]
+    return scatter_packed16(meta.reshape(B, -1), metb.reshape(B, -1), h * bpl)
+
+
+def walk8_raster(torch, dec_args, nc, h, bpl, c):
+    """The walk8 chain (B3, B4, B5) up to B6's input raster."""
+    from fpng_tpu_torch.ops import walk8 as W
+    from fpng_tpu_torch.ops.bitpack import scatter_packed16
+
+    records, e_fin, out0, steps, ovf, _ = W.decode_walk8(*dec_args,
+                                                         n_chunks=nc)
+    check(not bool(ovf.any()), "walk8 overflow")
+    k8 = W.trim_steps(int(steps), records[0].shape[1])
+    meta, metb, _ = W.finalize_records8(*records, e_fin, out0, k8=k8, h=h,
+                                        bpl=bpl, c=c)
+    B = meta.shape[0]
+    return scatter_packed16(meta.reshape(B, -1), metb.reshape(B, -1), h * bpl)
+
+
+def expand_times(torch, T, bench):
+    """B6 on the walk8 decode rasters of the headline and 4K corpora: its
+    CUDA-event time, launches a call and bound, each raster held against
+    expand_plain and the corpus's pixels."""
+    from fpng_tpu_torch.ops.expand import expand, expand_plain
+
+    out = {}
+    for name, imgs in (("headline", bench.make_corpus("real3")),
+                       ("4k", bench.make_corpus_4k())):
+        B, H, W_, Cc = imgs.shape
+        pngs = T.encode_batch(imgs, device=DEV)
+        _, dargs, _, nc = pack_batch(torch, pngs)
+        raster = walk8_raster(torch, dargs, nc, H, W_ * Cc, Cc)
+        n0 = expand.launches
+        got = expand(raster, h=H, w=W_, c=Cc)
+        per_call = expand.launches - n0
+        check(torch.equal(got, expand_plain(raster, h=H, w=W_, c=Cc)) and
+              np.array_equal(got.cpu().numpy(), imgs[device_decoded(pngs)]),
+              f"B6 on the {name} raster")
+        out[name] = dict(
+            ms=cuda_ms(torch, lambda: expand(raster, h=H, w=W_, c=Cc), 20),
+            launches_per_call=per_call,
+            bound_ms=bound(3 * raster.numel(), 8 * raster.numel())[0],
+            shape=[int(got.shape[0]), H, W_, Cc])
+    return out
 
 
 def decode_spans(torch, T, pngs, Cc, runs=3):
@@ -615,6 +753,60 @@ def walk_split(torch, pngs):
         torch.cuda.synchronize()
         out[name] = time.perf_counter() - t
     return out
+
+
+def make_large_raster(H=6144, W=7680):
+    """(1, H, W, 3): a mosaic of the 3-channel 256 x 256 tiles, built as
+    bench.make_corpus_4k builds its mosaic (rng seed 7), plus noise in
+    [0, 8) on every byte, so that the tokens average over 2.7 bits and the
+    chunked walk's 768 steps a 2048-bit chunk hold (6144 x 7680 x 3 is a
+    raster of 141.6 M bytes, past 2^27)."""
+    from fpng_tpu_torch.train import synthetic_corpus
+
+    tiles = [np.ascontiguousarray(t[:256, :256])
+             for t in synthetic_corpus(3, size=256)]
+    rng = np.random.default_rng(7)
+    img = np.concatenate([
+        np.concatenate([tiles[rng.integers(0, len(tiles))]
+                        for _ in range(-(-W // 256))], axis=1)[:, :W]
+        for _ in range(-(-H // 256))], axis=0)[:H]
+    img += rng.integers(0, 8, img.shape, dtype=np.uint8)  # wraps mod 256
+    return img[None]
+
+
+def phase_large_raster_2g(torch, T, reset, read):
+    """One raster past 2^27 bytes, past the walk gate: encode_batch, then
+    decode_batch on the chunked decode (B10 with 64-bit record offsets), no
+    host hand-off, the pixels and the zlib check."""
+    from fpng_tpu_torch.models.decoder import decode_batch
+    from fpng_tpu_torch.ops.walk8 import fits
+
+    img = make_large_raster()
+    _, H, W_, Cc = img.shape
+    raster_bytes = H * (1 + W_ * Cc)
+    check(raster_bytes >= 1 << 27 and not fits(H, W_ * Cc),
+          "the large raster is not past 2^27 bytes and the walk gate")
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    pngs, enc_s = timed(lambda: T.encode_batch(img, device=DEV))
+    (sts, outs), dec_s = timed(lambda: T.decode_batch(pngs, Cc, device=DEV))
+    launches = read()
+    paths, hand = dict(decode_batch.paths), decode_batch.host_handoffs
+    check(not is_stored(pngs[0]), "the large raster was stored")
+    check(sts == [0] and np.array_equal(outs[0], img[0]),
+          f"large raster round trip: status {sts}")
+    check(paths == {"walk8": 0, "pk1": 0, "chunked": 1} and hand == 0,
+          f"large raster paths {paths}, {hand} host hand-offs")
+    check(launches["deposit_bits"] == 1 and
+          launches["crc32_words_masked_raw"] == 1, f"large raster "
+          f"launches {launches}")
+    check(zlib_check(pngs[0], img[0]), "large raster zlib check")
+    zlen = int.from_bytes(pngs[0][50:54], "big")
+    line("large_raster_2g", batch=list(img.shape), raster_bytes=raster_bytes,
+         zlib_bytes=zlen, bits_per_raster_byte=8 * zlen / raster_bytes,
+         encode_s=enc_s, decode_s=dec_s, paths=paths, host_handoffs=hand,
+         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+         launches=launches)
 
 
 def phase_probes(torch):
@@ -874,7 +1066,7 @@ def main():
     from fpng_tpu_torch.models.decoder import decode_batch
     from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
     from fpng_tpu_torch.models import decoder as TD
-    from fpng_tpu_torch.ops.checksum import crc_chunks
+    from fpng_tpu_torch.ops.assemble import idat_crc_words
     from fpng_tpu_torch.ops.encfuse import demote_mask, encode_bits_fused
     from fpng_tpu_torch.ops.expand import expand
     from fpng_tpu_torch.ops.specdec_tpu import finalize_records, walk_fix
@@ -883,7 +1075,7 @@ def main():
     from fpng_tpu_torch.tools import prof_int8mxu as P2
 
     counters = {"encode_bits_fused": encode_bits_fused,
-                "crc32_words_masked_raw": crc_chunks,
+                "crc32_words_masked_raw": idat_crc_words,
                 "deposit_bits": deposit_bits,
                 "walk_fix8": walk_fix8,
                 "finalize_records8": finalize_records8,
@@ -918,6 +1110,9 @@ def main():
     kernels.lib()
     line("build", seconds=time.perf_counter() - t0, cached=cached,
          library=os.path.relpath(so, HERE))
+    if sys.argv[1:] == ["--expand"]:
+        line("expand", card=card, **expand_times(torch, T, bench))
+        return
 
     # --- 3. kernels against their plain versions ------------------------------
     imgs = bench.make_corpus("real3")
@@ -936,6 +1131,8 @@ def main():
     check(all(launches[k] > 0 for k in walk8_path),
           f"a kernel of the walk8 path never launched: {launches}")
     check(launches["walk_fix8"] == 1, "B3 launched more than once a walk")
+    check(launches["crc32_words_masked_raw"] == 1 and
+          launches["expand"] == 1, "B2 or B6 not one launch a call")
     check(not any(launches[k] for k in ("demote_mask", "walk_fix",
                                         "finalize_records", "deposit_bits")),
           f"a kernel off the headline path launched: {launches}")
@@ -1015,14 +1212,21 @@ def main():
     check(decode_batch.paths == {"walk8": 2, "pk1": 0, "chunked": 0},
           f"4K decode paths {decode_batch.paths}")
     check(decode_batch.device_images == 4, "4K images not decoded on device")
-    _, _, wargs4, nc4 = pack_batch(torch, bp)
+    _, dargs4, wargs4, nc4 = pack_batch(torch, bp)
     walk4k_ms = cuda_ms(torch, lambda: walk_fix8(*wargs4, n_chunks=nc4), 5)
+    H4, W4, C4 = big.shape[1:]
+    raster4k = walk8_raster(torch, dargs4, nc4, H4, W4 * C4, C4)
+    check_expand(torch, raster4k, big, "the 4K walk8 decode")
+    expand4k_ms = cuda_ms(torch, lambda: expand(raster4k, h=H4, w=W4, c=C4),
+                          5)
+    del raster4k
     mpix = big.shape[0] * big.shape[1] * big.shape[2] / 1e6
     line("large_raster", batch=list(big.shape), encode_s=times[1][0],
          decode_s=times[1][1], encode_mpix_s=mpix / times[1][0],
          decode_mpix_s=mpix / times[1][1], first_run_s=list(times[0][:2]),
          decode_path="walk8", walk8_passes=times[1][2],
          walk_fix8_ms=walk4k_ms, walk_fix8_lanes=[len(bp), nc4],
+         expand_ms=expand4k_ms, expand_bound_ms=bound(3 * big.size, 0)[0],
          stored_fallbacks=sum(map(is_stored, bp)),
          host_handoffs=decode_batch.host_handoffs,
          bytes=[len(p) for p in bp])
@@ -1145,6 +1349,9 @@ def main():
          launches=chunked_launches, pk1_launches=pk1_launches,
          overflow_chain=["walk8", "pk1"],
          past_gate_chain=["chunked", "host"])
+
+    # --- large_raster_2g: a raster past 2^27 bytes on the chunked decode ----
+    phase_large_raster_2g(torch, T, reset, read)
 
     # --- 7. corrupted streams -----------------------------------------------
     rng = np.random.default_rng(11)

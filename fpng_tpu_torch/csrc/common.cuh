@@ -69,12 +69,12 @@ struct BitSink {
   long long cw = -1;  // word being accumulated
   uint32_t cv = 0;    // its bits so far
 
-  __device__ __forceinline__ void flush(uint32_t* words, int nw) {
+  __device__ __forceinline__ void flush(uint32_t* words, long long nw) {
     if (cv != 0 && cw >= 0 && cw < nw) atomicOr(words + cw, cv);
   }
 
-  __device__ __forceinline__ void put(uint32_t* words, int nw, uint32_t val,
-                                      long long off) {
+  __device__ __forceinline__ void put(uint32_t* words, long long nw,
+                                      uint32_t val, long long off) {
     if (val == 0) return;
     const long long wi = off >> 5;
     const int sh = (int)(off & 31);

@@ -8,6 +8,11 @@
 // num_words are dropped and zero values deposit nothing, so every word
 // equals what the plain scatter-add (ops/bitpack.py:scatter_bits) gives.
 //
+// Offsets are int32 in units of 2^shift bits (the chunked decode passes
+// 16-bit slot indices with shift 4), widened to 64-bit bit offsets in the
+// kernel: a raster past 2^27 bytes has record offsets past 2^31 bits, and
+// int64 offsets in memory would add 4 bytes a unit that carry nothing.
+//
 // What bounds it on the H100: bytes.  It streams 8 bytes per unit in and
 // writes each touched word once; the decoder's record stream is mostly
 // zero-width slots, so the reads dominate.  Loads are staged through shared
@@ -22,7 +27,8 @@ namespace {
 
 __global__ void __launch_bounds__(kThreads)
 deposit_kernel(const int* __restrict__ vals, const int* __restrict__ offs,
-               int N, int num_words, uint32_t* __restrict__ words) {
+               int shift, int N, long long num_words,
+               uint32_t* __restrict__ words) {
   __shared__ int v_s[kTilePadded];
   __shared__ int o_s[kTilePadded];
   const int b = blockIdx.y;
@@ -40,7 +46,7 @@ deposit_kernel(const int* __restrict__ vals, const int* __restrict__ offs,
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
     const int i = pad(threadIdx.x * kItems + k);
-    sink.put(w, num_words, (uint32_t)v_s[i], (long long)o_s[i]);
+    sink.put(w, num_words, (uint32_t)v_s[i], (long long)o_s[i] << shift);
   }
   sink.flush(w, num_words);
 }
@@ -74,14 +80,16 @@ scatter_packed16_kernel(const int* __restrict__ meta,
 }  // namespace
 }  // namespace fpng
 
-// vals, offsets (B, N) -> words (B, num_words), zeroed by the caller.
-extern "C" int fpng_deposit(const int* vals, const int* offsets, int B, int N,
-                            int num_words, int* words, void* stream) {
+// vals, offsets (B, N) int32, offsets in units of 2^shift bits -> words
+// (B, num_words), zeroed by the caller.
+extern "C" int fpng_deposit(const int* vals, const int* offsets, int shift,
+                            int B, int N, long long num_words, int* words,
+                            void* stream) {
   using namespace fpng;
   if (B <= 0 || N <= 0) return 0;
   const dim3 grid((N + kTile - 1) / kTile, B);
   deposit_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      vals, offsets, N, num_words, (uint32_t*)words);
+      vals, offsets, shift, N, num_words, (uint32_t*)words);
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,12 @@
 //   2. encfuse_scan:    exclusive scan of the block sums per image,
 //   3. encfuse_deposit: lookup, in-block scan, and the deposit itself.
 // Each thread owns kItems consecutive units and ORs whole words (BitSink),
-// so atomics are about one per output word, not one per unit.
+// so atomics are about one per output word, not one per unit.  Bit offsets
+// are int64 (a raster past 2^27 bytes has streams near 2^31 bits); the
+// int32 outputs total_bits and last_tok saturate at 2^31 - 1, as the plain
+// version's do, and such a stream is past the stored-fallback budget.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -53,7 +58,7 @@ __device__ __forceinline__ void load_table(const int* tbl, int b, int* tbl_s) {
 
 __global__ void __launch_bounds__(kThreads)
 encfuse_sums(const int* __restrict__ desc, const int* __restrict__ tbl, int N,
-             int nblk, int* __restrict__ block_offs) {
+             int nblk, long long* __restrict__ block_offs) {
   __shared__ int tbl_s[kTblEntries];
   __shared__ int red[32];
   const int b = blockIdx.y;
@@ -73,26 +78,28 @@ encfuse_sums(const int* __restrict__ desc, const int* __restrict__ tbl, int N,
 
 // One block per image: block sums -> base_bits + exclusive prefix, in place.
 __global__ void __launch_bounds__(1024)
-encfuse_scan(int* __restrict__ block_offs, const int* __restrict__ base_bits,
-             int nblk, int* __restrict__ total_bits) {
+encfuse_scan(long long* __restrict__ block_offs,
+             const int* __restrict__ base_bits, int nblk,
+             int* __restrict__ total_bits) {
   __shared__ int red[32];
   const int b = blockIdx.x;
-  int* s = block_offs + (size_t)b * nblk;
-  int carry = base_bits[b];
+  long long* s = block_offs + (size_t)b * nblk;
+  long long carry = base_bits[b];
   for (int start = 0; start < nblk; start += 1024) {
     const int i = start + threadIdx.x;
-    const int v = i < nblk ? s[i] : 0;
+    // a block sum is under 2^17 and 1024 of them under 2^27: int scans
+    const int v = i < nblk ? (int)s[i] : 0;
     int chunk;
     const int incl = block_incl_scan<1024>(v, red, chunk);
     if (i < nblk) s[i] = carry + incl - v;
     carry += chunk;
   }
-  if (threadIdx.x == 0) total_bits[b] = carry;
+  if (threadIdx.x == 0) total_bits[b] = (int)min(carry, (long long)INT_MAX);
 }
 
 __global__ void __launch_bounds__(kThreads)
 encfuse_deposit(const int* __restrict__ desc, const int* __restrict__ tbl,
-                const int* __restrict__ block_offs, int N, int nblk,
+                const long long* __restrict__ block_offs, int N, int nblk,
                 int num_words, uint32_t* __restrict__ words,
                 int* __restrict__ last_tok) {
   __shared__ int tbl_s[kTblEntries];
@@ -117,15 +124,14 @@ encfuse_deposit(const int* __restrict__ desc, const int* __restrict__ tbl,
   }
   int unused;
   const int incl = block_incl_scan<kThreads>(s, red, unused);
-  long long off = (long long)block_offs[(size_t)b * nblk + blockIdx.x] +
-                  incl - s;
+  long long off = block_offs[(size_t)b * nblk + blockIdx.x] + incl - s;
 
   uint32_t* w = words + (size_t)b * num_words;
   BitSink sink;
   int lt = -1;
 #pragma unroll
   for (int k = 0; k < kItems; ++k) {
-    if (u[k].ts) lt = (int)off;
+    if (u[k].ts) lt = (int)min(off, (long long)INT_MAX);
     sink.put(w, num_words, u[k].val, off);
     off += u[k].n;
   }
@@ -139,11 +145,12 @@ encfuse_deposit(const int* __restrict__ desc, const int* __restrict__ tbl,
 
 // desc (B, N), tbl (B, 1024) packed code | size << 16, base_bits (B,)
 // -> words (B, num_words) zeroed by the caller, total_bits (B,),
-// last_tok (B,) set to -1 by the caller; block_offs (B, nblk) scratch.
+// last_tok (B,) set to -1 by the caller; block_offs (B, nblk) int64
+// scratch.
 extern "C" int fpng_encfuse(const int* desc, const int* tbl,
                             const int* base_bits, int B, int N, int num_words,
                             int* words, int* total_bits, int* last_tok,
-                            int* block_offs, void* stream) {
+                            long long* block_offs, void* stream) {
   using namespace fpng;
   if (B <= 0 || N <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;

@@ -33,10 +33,10 @@ _SIGNATURES = {
     # desc, tbl, base_bits, B, N, num_words, words, total, last_tok,
     # block_offsets, stream
     "fpng_encfuse": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    # words, lo, hi, table, B, NW, regs, stream
-    "fpng_crc_words": [_P, _P, _P, _P, _I, _I, _P, _P],
-    # vals, offsets, B, N, num_words, words, stream
-    "fpng_deposit": [_P, _P, _I, _I, _I, _P, _P],
+    # words, total_bits, adler, meta, table, shifts, B, NW, crc, stream
+    "fpng_idat_crc": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # vals, offsets, shift, B, N, num_words (int64), words, stream
+    "fpng_deposit": [_P, _P, _I, _I, _I, ctypes.c_longlong, _P, _P],
     # words, nw, lut, p0, zl8, B, NC, ST, abort_on_overflow, ent, ex0,
     # ex1, nst, ovf, posr, raw0, raw1, ctl, info (host), stream
     "fpng_walk8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -47,8 +47,8 @@ _SIGNATURES = {
                        _P, _P, _P, _P],
     # meta, metb, B, N, n_slots, raster, stream
     "fpng_scatter_packed16": [_P, _P, _I, _I, _I, _P, _P],
-    # raster, B, h, w, c, out, stream
-    "fpng_expand": [_P, _I, _I, _I, _I, _P, _P],
+    # raster, B, h, w, c, rows, strip, bands, scratch, out, stream
+    "fpng_expand": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # deltas, len_sym, len_extra, cand, tbl, B, HW, out, stream
     "fpng_demote": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # cu, big, ohc0, B, T, WPS, M, src, prod, out, stream
@@ -143,12 +143,11 @@ def stream_ptr(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda(name: str, *tensors) -> None:
-    """Validate kernel inputs: one CUDA device, contiguous, int32."""
+def require_cuda(name: str, *tensors, dtype=torch.int32) -> None:
+    """Validate kernel inputs: one CUDA device, contiguous, `dtype`."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device != dev or not t.is_contiguous() or \
-                t.dtype != torch.int32:
+        if t.device != dev or not t.is_contiguous() or t.dtype != dtype:
             raise ValueError(
-                f"{name}: inputs must be contiguous int32 tensors on one "
+                f"{name}: inputs must be contiguous {dtype} tensors on one "
                 f"CUDA device (got {t.dtype} on {t.device})")

@@ -200,14 +200,12 @@ def _validate(images: np.ndarray):
 
 
 def launch_assemble(words, total_bits, adler, prefixes):
-    """Issue the device IDAT-CRC pass (ops/assemble.py); no sync.  Returns
-    the (B,) int64 CRC tensor.  The rest of container assembly is the host
-    memcpy in _finish_batch_devcrc."""
-    dev = words.device
+    """Issue the device IDAT CRC (ops/assemble.py: on a card, one upload
+    and one launch); no sync.  Returns the (B,) int64 CRC tensor.  The rest
+    of container assembly is the host memcpy in _finish_batch_devcrc."""
     plens = np.array([len(p) for p in prefixes], np.int64)
     raw_ip = raw_idat_prefix(prefixes).astype(np.int64)
-    return idat_crc_words(words, total_bits, adler, to_device(plens, dev),
-                          to_device(raw_ip, dev))
+    return idat_crc_words(words, total_bits, adler, plens, raw_ip)
 
 
 _IEND12 = b"\x00\x00\x00\x00IEND\xaeB`\x82"

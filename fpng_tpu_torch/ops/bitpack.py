@@ -59,24 +59,31 @@ def scatter_bits(vals: torch.Tensor, nbits: torch.Tensor,
 
 
 def deposit_bits(vals: torch.Tensor, nbits: torch.Tensor,
-                 offsets: torch.Tensor, num_words: int) -> torch.Tensor:
+                 offsets: torch.Tensor, num_words: int, *,
+                 shift: int = 0) -> torch.Tensor:
     """Monotone bit deposit: the wrapper of kernel B10 (csrc/deposit.cu).
 
-    Same contract as scatter_bits, on every word: words that no unit
-    touches are zero.  A CPU tensor takes scatter_bits; a CUDA tensor
-    launches the kernel (int32 vals and offsets) or raises.
+    The contract of scatter_bits at bit offsets `offsets << shift`, on
+    every word: words that no unit touches are zero.  The chunked decode
+    passes int32 16-bit slot indices with shift=4, so its record offsets
+    reach past 2^31 bits (a raster past 2^27 bytes) while each unit stays
+    8 bytes.  A CPU tensor takes scatter_bits; a CUDA tensor launches the
+    kernel (int32 vals and offsets) or raises.
     """
+    if not 0 <= shift < 32:
+        raise ValueError(f"deposit_bits: shift {shift} outside [0, 32)")
     if vals.device.type == "cpu":
-        return scatter_bits(vals, nbits, offsets, num_words)
+        return scatter_bits(vals, nbits, offsets.to(torch.int64) << shift,
+                            num_words)
     K.require_cuda("deposit_bits", vals, offsets)
     if vals.dim() != 2 or offsets.shape != vals.shape:
         raise ValueError("deposit_bits: vals and offsets must be (B, N)")
     B, N = vals.shape
-    if N >= 1 << 31 or num_words >= 1 << 31:
-        raise ValueError("deposit_bits: sizes past int32")
+    if N >= 1 << 31:
+        raise ValueError("deposit_bits: more than 2^31 units an image")
     words = torch.zeros((B, num_words), dtype=torch.int32, device=vals.device)
     K.check(K.lib().fpng_deposit(
-        vals.data_ptr(), offsets.data_ptr(), B, N, num_words,
+        vals.data_ptr(), offsets.data_ptr(), shift, B, N, num_words,
         words.data_ptr(), K.stream_ptr(vals.device)), "fpng_deposit")
     deposit_bits.launches += 1
     return words

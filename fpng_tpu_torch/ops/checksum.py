@@ -8,7 +8,8 @@ the XOR of per-(position, bit) contributions; chunk registers combine in a
 log-depth tree with x^(8*L*2^t) mod P shift matrices.  The matrices and
 tables are host numpy/Python (copied from the JAX package, which keeps them
 in modules that import jax); their application is torch ops on int64
-registers masked to 32 bits.  crc32_words_masked_raw wraps kernel B2
+registers masked to 32 bits.  This is the plain side of kernel B2 on any
+device; the whole IDAT CRC in one launch is ops/assemble.py:idat_crc_words
 (csrc/crc_words.cu).
 """
 
@@ -19,7 +20,6 @@ import functools
 import numpy as np
 import torch
 
-from .. import kernels as K
 from .bitpack import from_word32
 
 ADLER_MOD = 65521
@@ -191,6 +191,20 @@ def _bit_table_4() -> np.ndarray:
     return np.array([t[k // 8, k % 8] for k in range(32)], np.uint32)
 
 
+SHIFT_LEVELS = 32  # 2^t-byte shift matrices, t < 32
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_tables() -> np.ndarray:
+    """(2 * SHIFT_LEVELS + 1, 32) uint32: the 2^t-byte shift matrices, their
+    inverses and the 4-byte LE word table, each as 32 basis images (the
+    tables B2's finish applies, csrc/crc_words.cu)."""
+    rows = [_shift_pow2_matrix(t) for t in range(SHIFT_LEVELS)] + \
+        [_inv_shift_pow2_matrix(t) for t in range(SHIFT_LEVELS)] + \
+        [tuple(int(x) for x in _bit_table_4())]
+    return np.array(rows, np.uint32)
+
+
 def crc32_raw_prefix_host(msgs: list[bytes]) -> np.ndarray:
     """Host-side raw (init-0) CRC registers of short per-image messages,
     vectorized over the batch with the byte table."""
@@ -283,9 +297,16 @@ def _word_table_on(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_word_bit_table().view(np.int32)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _shift_tables_on(device: torch.device) -> torch.Tensor:
+    """_shift_tables() as int32 bit patterns on device, uploaded once per
+    device (8.3 KB)."""
+    return torch.from_numpy(_shift_tables().view(np.int32)).to(device)
+
+
 def crc_chunks_plain(words: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel B2: (B, NW) int32 words -> (B, NW/1024)
+    """B2's chunk pass as torch ops: (B, NW) int32 words -> (B, NW/1024)
     int64 raw chunk registers, bytes outside [lo, hi) read as zero."""
     B, NW = words.shape
     Kc = NW // _WCRC_CW
@@ -303,35 +324,6 @@ def crc_chunks_plain(words: torch.Tensor, lo: torch.Tensor,
     for k in range(32):
         acc ^= ((wm >> k) & 1) * tab[k]
     return _xor_reduce_last(acc)
-
-
-def crc_chunks(words: torch.Tensor, lo: torch.Tensor,
-               hi: torch.Tensor) -> torch.Tensor:
-    """Raw register of each 1024-word chunk: the wrapper of kernel B2.
-
-    A CPU tensor takes crc_chunks_plain; a CUDA tensor launches the kernel
-    or raises.  Returns (B, NW/1024) int64.
-    """
-    B, NW = words.shape
-    if NW % _WCRC_CW:
-        raise ValueError(f"word count {NW} is not a multiple of {_WCRC_CW}")
-    if words.device.type == "cpu":
-        return crc_chunks_plain(words, lo, hi)
-    lo = lo.to(torch.int32).contiguous()
-    hi = hi.to(torch.int32).contiguous()
-    table = _word_table_on(words.device)
-    K.require_cuda("crc32_words_masked_raw", words, lo, hi, table)
-    regs = torch.empty((B, NW // _WCRC_CW), dtype=torch.int32,
-                       device=words.device)
-    K.check(K.lib().fpng_crc_words(
-        words.data_ptr(), lo.data_ptr(), hi.data_ptr(), table.data_ptr(),
-        B, NW, regs.data_ptr(), K.stream_ptr(words.device)),
-        "fpng_crc_words")
-    crc_chunks.launches += 1
-    return from_word32(regs)
-
-
-crc_chunks.launches = 0
 
 
 def combine_chunks(acc: torch.Tensor) -> torch.Tensor:
@@ -356,5 +348,9 @@ def crc32_words_masked_raw(words: torch.Tensor, lo: torch.Tensor,
     """Init-0 CRC register of each row of a (B, NW) int32 LE word buffer
     with bytes outside [lo[b], hi[b]) treated as zero.  NW must be a
     multiple of 1024; the result (B,) int64 is the raw register of the
-    full 4*NW-byte masked message."""
-    return combine_chunks(crc_chunks(words, lo, hi))
+    full 4*NW-byte masked message.  Torch ops on any device: the plain
+    version of kernel B2's chunk pass and combine."""
+    if words.shape[1] % _WCRC_CW:
+        raise ValueError(f"word count {words.shape[1]} is not a multiple of "
+                         f"{_WCRC_CW}")
+    return combine_chunks(crc_chunks_plain(words, lo, hi))

@@ -32,8 +32,8 @@ DESC_EXTRA_VAL_SHIFT = 13
 DESC_TOK_START = 1 << 26
 
 _TILE = 2048  # units per block of the kernel (kTile in csrc/common.cuh)
-_MAX_UNIT_BITS = 18  # a match unit: 12-bit code + 5 extra + 1 distance bit
 _MAX_BASE_BITS = 1 << 16  # base_bits bound: a header prefix is < 640 bytes
+INT32_MAX = (1 << 31) - 1
 
 
 def pack_table(codes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
@@ -70,7 +70,7 @@ def encode_bits_plain(desc: torch.Tensor, tbl: torch.Tensor,
                       base_bits: torch.Tensor, num_words: int):
     """Plain version of kernel B1: materialize_units + exclusive_offsets +
     scatter_bits.  Returns (words (B, num_words) int32, total_bits (B,)
-    int32, last_tok (B,) int32)."""
+    int32, last_tok (B,) int32), both saturated at 2^31 - 1."""
     B = desc.shape[0]
     t = tbl.reshape(B, -1).to(torch.int64)
     vals, nbits, ts = materialize_units(desc, t & 0xFFFF, t >> 16)
@@ -78,7 +78,8 @@ def encode_bits_plain(desc: torch.Tensor, tbl: torch.Tensor,
     words = scatter_bits(vals, nbits, offsets, num_words)
     total = offsets[:, -1] + nbits[:, -1]
     last_tok = torch.where(ts, offsets, -1).max(dim=1).values
-    return words, total.to(torch.int32), last_tok.to(torch.int32)
+    return (words, total.clamp(max=INT32_MAX).to(torch.int32),
+            last_tok.clamp(max=INT32_MAX).to(torch.int32))
 
 
 def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
@@ -89,8 +90,10 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
     tbl: (B, 8, 128) int32 from pack_table; base_bits: (B,) int32 start
     offsets (serialized prefix bits, below 2^16).  Returns (words
     (B, num_words) int32 uint32 patterns, total_bits (B,) int32, last_tok
-    (B,) int32).  Every
-    word equals encode_bits_plain's.  A CPU tensor takes the plain version;
+    (B,) int32, both saturated at 2^31 - 1; the bit offsets themselves are
+    int64).  Every word equals encode_bits_plain's; num_words is below
+    2^26, so a stream whose total saturates is past every word and past
+    the stored-fallback budget.  A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel (three launches, counted in
     `encode_bits_fused.launches`) or raises.
     """
@@ -101,15 +104,14 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
     K.require_cuda("encode_bits_fused", desc, tbl, base_bits)
     if base_bits.shape != (B,):
         raise ValueError("encode_bits_fused: base_bits must be (B,)")
-    if _MAX_BASE_BITS + _MAX_UNIT_BITS * N >= 1 << 31 or \
-            num_words >= 1 << 31:
-        raise ValueError("encode_bits_fused: bit offsets past int32")
+    if N >= 1 << 31 or num_words >= 1 << 26:
+        raise ValueError("encode_bits_fused: words past 2^31 bits")
     dev = desc.device
     nblk = -(-N // _TILE)
     words = torch.zeros((B, num_words), dtype=torch.int32, device=dev)
     total = torch.empty(B, dtype=torch.int32, device=dev)
     last_tok = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    block_offs = torch.empty((B, nblk), dtype=torch.int32, device=dev)
+    block_offs = torch.empty((B, nblk), dtype=torch.int64, device=dev)
     K.check(K.lib().fpng_encfuse(
         desc.data_ptr(), tbl.data_ptr(), base_bits.data_ptr(), B, N,
         num_words, words.data_ptr(), total.data_ptr(), last_tok.data_ptr(),

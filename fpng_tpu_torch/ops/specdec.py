@@ -141,6 +141,18 @@ def _walk(w24, lutp, entries, ends, dead, max_steps):
     return torch.where(dead, 0, pos), torch.where(dead, 0, out)
 
 
+def record_offsets(rec_out: torch.Tensor, total: int):
+    """The record expansion's geometry: (B, ST, NC) int32 output slots ->
+    (B, NC * ST) int32 lane-major slot offsets, the bit shift that makes
+    them bit offsets (16 bits a slot) and the deposit's word count for a
+    `total`-slot raster.  The slots stay int32 (total < 2^31); their bit
+    offsets pass 2^31 once the raster passes 2^27 bytes, and B10 widens
+    them to 64 bits."""
+    B = rec_out.shape[0]
+    ro = rec_out.transpose(1, 2).reshape(B, -1).contiguous()
+    return ro, 4, -(-(16 * (total + 1)) // 32) + 1
+
+
 def decode_kernel(stream, lutp, p0, zlib_len, *, h: int, w: int, c: int,
                   n_chunks: int, chunk_bits: int = CHUNK_BITS,
                   max_steps: int = 768):
@@ -159,10 +171,8 @@ def decode_kernel(stream, lutp, p0, zlib_len, *, h: int, w: int, c: int,
     bpl = w * c
     row_stride = 1 + bpl
     total = h * row_stride
-    if 16 * (total + 1) >= 1 << 31:
-        raise NotImplementedError(
-            "rasters past 2^27 bytes need int64 record offsets "
-            "(ROADMAP A12)")
+    if total >= 1 << 31:  # the records hold output slots as int32
+        raise ValueError("the chunked decode takes rasters under 2^31 bytes")
     p0 = p0.to(torch.int64)
     zlib_len = zlib_len.to(torch.int64)
 
@@ -253,11 +263,10 @@ def decode_kernel(stream, lutp, p0, zlib_len, *, h: int, w: int, c: int,
     ok &= ((end_bits + 7) >> 3) == (zlib_len - 4)
 
     # --- record expansion: 16-bit slots (sym | literal << 8) -----------------
-    n_rec = NC * ST
-    dep_words = -(-(16 * (total + 1)) // 32) + 1
-    rs = rec_sym.transpose(1, 2).reshape(B, n_rec)  # lane-major, sorted
-    ro = rec_out.transpose(1, 2).reshape(B, n_rec) * 16
-    dep = deposit_bits(rs, (rs != 0).to(torch.int32) << 4, ro, dep_words)
+    rs = rec_sym.transpose(1, 2).reshape(B, NC * ST)  # lane-major, sorted
+    ro, shift, dep_words = record_offsets(rec_out, total)
+    dep = deposit_bits(rs, (rs != 0).to(torch.int32) << 4, ro, dep_words,
+                       shift=shift)
     pairs = dep.view(torch.uint8).reshape(B, dep_words * 4)[:, :2 * total] \
         .reshape(B, total, 2)
 

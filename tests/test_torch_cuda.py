@@ -20,11 +20,11 @@ from fpng_tpu_torch.models.encoder import (_budget, _num_words, build_desc,
                                            tokens)
 from fpng_tpu_torch.ops import specdec_tpu as PK
 from fpng_tpu_torch.ops import walk8 as W
-from fpng_tpu_torch.ops.assemble import idat_crc_words, raw_idat_prefix
+from fpng_tpu_torch.ops.assemble import (idat_crc_words, idat_crc_words_plain,
+                                         raw_idat_prefix)
 from fpng_tpu_torch.ops.bitpack import (deposit_bits, scatter_bits,
                                         scatter_packed16,
                                         scatter_packed16_plain)
-from fpng_tpu_torch.ops.checksum import crc_chunks, crc_chunks_plain
 from fpng_tpu_torch.ops.encfuse import (demote_mask, demote_mask_plain,
                                         encode_bits_fused, encode_bits_plain,
                                         pack_table)
@@ -93,39 +93,73 @@ def test_encfuse_matches_plain(rng, shape, nw_cut):
         assert torch.equal(g.cpu(), w)
 
 
-@pytest.mark.parametrize("K", [1, 2, 5])
-def test_crc_chunks_matches_plain_and_zlib(K):
-    rng = np.random.default_rng(K)
-    B, NW = 4, K * 1024
-    words = rng.integers(0, 2**32, (B, NW), np.uint64).astype(np.uint32)
-    lo = np.array([0, 5, 61, 4097 % (4 * NW)], np.int64)
-    hi = np.array([4 * NW, 4 * NW - 3, 4 * NW // 2 + 1, 4 * NW - 18])
-    wt = torch.from_numpy(words.view(np.int32)).cuda()
-    got = crc_chunks(wt, torch.from_numpy(lo).cuda(),
-                     torch.from_numpy(hi).cuda())
-    want = crc_chunks_plain(wt.cpu(), torch.from_numpy(lo),
-                            torch.from_numpy(hi))
-    assert torch.equal(got.cpu(), want)
+def test_encfuse_saturates_like_plain(rng):
+    """B1's int64 bit offsets past 2^31: total_bits and last_tok saturate
+    at 2^31 - 1 as the plain version's do, and no unit lands in the
+    words."""
+    imgs = np.stack([make_test_image(rng, 20, 30, 3, k)
+                     for k in ("mixed", "noise")])
+    dev = torch.device("cuda")
+    desc, tbl, base = _desc(imgs, dev)
+    base = torch.full_like(base, 2 ** 31 - 100)
+    got = encode_bits_fused(desc, tbl, base, 1024)
+    want = encode_bits_plain(desc.cpu(), tbl.cpu(), base.cpu(), 1024)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (got[1] == 2 ** 31 - 1).all() and not got[0].any()
 
-    prefixes = [b"\x78\x01" + bytes(rng.integers(0, 256, 40, np.uint8))
-                for _ in range(B)]
-    tb = np.maximum(hi, 60)
+
+# (chunks K, payload end bytes per image as a function of N = 4 * NW,
+# prefix lengths; None = one prefix shared by the batch, as 1-pass)
+IDAT_CASES = [
+    (49, lambda N: [N - 777, 3 * 4096 + 5, 40 * 4096], None),
+    (1, lambda N: [61, 4096, 2000], [10, 0, 33]),
+    (3, lambda N: [N, N, N - 1], [40, 2, 17]),
+    (3, lambda N: [4095, 200, 65], [20, 20, 64]),
+    (2, lambda N: [N - 4, 9, 4097], [0, 0, 0]),
+    (4, lambda N: [N - 2, 2 * 4096, 7000], [300, 5, 1]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(IDAT_CASES)))
+def test_idat_crc_kernel_matches_plain_and_zlib(case):
+    """B2 in one launch against idat_crc_words_plain (torch ops on the
+    card) and zlib: an odd chunk count, one
+    chunk, no zero tail, a payload inside the first chunk, no prefix,
+    per-image prefixes."""
+    K, tb_of, plens = IDAT_CASES[case]
+    rng = np.random.default_rng(case)
+    B, NW = 3, K * 1024
+    words = rng.integers(0, 2**32, (B, NW), np.uint64).astype(np.uint32)
+    if plens is None:
+        prefixes = [bytes(rng.integers(0, 256, 37, np.uint8))] * B
+    else:
+        prefixes = [bytes(rng.integers(0, 256, n, np.uint8)) for n in plens]
+    tb = np.array(tb_of(4 * NW), np.int64)
     adler = rng.integers(0, 2**32, B, np.uint64).astype(np.int64)
-    crc = idat_crc_words(
-        wt, torch.from_numpy(tb * 8).cuda(), torch.from_numpy(adler).cuda(),
-        torch.tensor([len(p) for p in prefixes]).cuda(),
-        torch.from_numpy(raw_idat_prefix(prefixes).astype(np.int64)).cuda())
-    crc = crc.cpu().numpy()
+    plens = np.array([len(p) for p in prefixes], np.int64)
+    raw_ip = raw_idat_prefix(prefixes).astype(np.int64)
+    wt = torch.from_numpy(words.view(np.int32)).cuda()
+    tbits = torch.from_numpy(tb * 8).to(torch.int32).cuda()
+    at = torch.from_numpy(adler).cuda()
+    n0 = idat_crc_words.launches
+    got = idat_crc_words(wt, tbits, at, plens, raw_ip)
+    torch.cuda.synchronize()
+    assert idat_crc_words.launches == n0 + 1
+    want = idat_crc_words_plain(wt, tbits, at, torch.from_numpy(plens).cuda(),
+                                torch.from_numpy(raw_ip).cuda())
+    assert torch.equal(got, want)
     for b in range(B):
         raw = bytearray(words[b].tobytes()[:tb[b]])
         raw[:len(prefixes[b])] = prefixes[b]
         msg = b"IDAT" + bytes(raw) + int(adler[b]).to_bytes(4, "big")
-        assert int(crc[b]) == zlib.crc32(msg), b
+        assert int(got[b]) == zlib.crc32(msg), b
 
 
-@pytest.mark.parametrize("n,total,nw_cut", [
-    (6000, 50000, 0), (70000, 30000, 0), (5000, 40000, 500)])
-def test_deposit_matches_scatter(n, total, nw_cut):
+@pytest.mark.parametrize("n,total,nw_cut,shift", [
+    (6000, 50000, 0, 4), (70000, 30000, 0, 4), (5000, 40000, 500, 4),
+    (6000, 50000, 0, 0)])
+def test_deposit_matches_scatter(n, total, nw_cut, shift):
     rng = np.random.default_rng(n)
     B = 3
     # decode-style records: sorted slots, literals at distinct slots,
@@ -135,13 +169,33 @@ def test_deposit_matches_scatter(n, total, nw_cut):
     lit = step & (rng.random((B, n)) < 0.8)
     vals = np.where(lit, rng.integers(0, 256, (B, n)) | 0x100, 0)
     nbits = np.where(lit, 16, 0)
-    offs = outp * 16
+    # slots with shift 4 (as the chunked decode), or bit offsets
+    offs = torch.from_numpy((outp << (4 - shift)).astype(np.int32))
     nw = nw_cut or (16 * (total + 1)) // 32 + 2
-    args = [torch.from_numpy(a.astype(np.int32)) for a in (vals, nbits, offs)]
+    args = [torch.from_numpy(a.astype(np.int32)) for a in (vals, nbits)]
     n0 = deposit_bits.launches
-    got = deposit_bits(*[a.cuda() for a in args], nw)
+    got = deposit_bits(*[a.cuda() for a in args], offs.cuda(), nw,
+                       shift=shift)
     assert deposit_bits.launches == n0 + 1
-    assert torch.equal(got.cpu(), scatter_bits(*args, nw))
+    assert torch.equal(got.cpu(), scatter_bits(
+        *args, torch.from_numpy(outp * 16), nw))
+
+
+def test_deposit_places_units_past_2_31_bits():
+    """B10's 64-bit bit offsets: int32 slots (shift 4) straddling 2^27 (bit
+    2^31) of a raster past 2^27 bytes, each literal in its own 16-bit
+    slot."""
+    base = 2 ** 27 - 3
+    slots = torch.tensor([[5, base, base + 1, base + 3, base + 3, base + 6]],
+                         dtype=torch.int32)
+    syms = torch.tensor([[0x141, 0x17F, 0x100, 0x1AA, 0, 0x1FF]],
+                        dtype=torch.int32)
+    num_words = (base + 8) // 2
+    got = deposit_bits(syms.cuda(), (syms != 0).to(torch.int32).cuda() << 4,
+                       slots.cuda(), num_words, shift=4)
+    half = got.cpu().numpy().view(np.uint16)[0]
+    want = {int(s): int(v) for s, v in zip(slots[0], syms[0]) if v}
+    assert {int(i): int(half[i]) for i in np.flatnonzero(half)} == want
 
 
 def test_kernel_wrappers_reject_wrong_dtype():
@@ -226,8 +280,13 @@ def test_walk8_kernels_match_plain(case):
     assert np.array_equal(out[0].cpu().numpy(), imgs)
 
 
-@pytest.mark.parametrize("c,h,w", [(3, 13, 7), (4, 9, 70), (3, 300, 517),
-                                   (4, 1, 1)])
+@pytest.mark.parametrize("c,h,w", [
+    (3, 13, 7), (4, 9, 70), (3, 300, 517), (4, 1, 1), (3, 21, 13),
+    (3, 256, 256),     # the headline: 16 bands of 16 rows
+    (3, 40, 3840),     # 4K rows: 3 strips of 3840, bands of 3 rows
+    (4, 7, 3840),      # 4K RGBA rows: 4 strips
+    (3, 3, 1500),      # strips whose rows are not 16-byte aligned
+    (3, 2, 60000)])    # one row cut into 44 strips
 def test_expand_matches_plain(c, h, w):
     rng = np.random.default_rng(c * h + w)
     B = 3
@@ -237,7 +296,7 @@ def test_expand_matches_plain(c, h, w):
     n0 = expand.launches
     got = expand(raster.cuda(), h=h, w=w, c=c)
     torch.cuda.synchronize()
-    assert expand.launches == n0 + 2
+    assert expand.launches == n0 + 1
     assert torch.equal(got.cpu(), expand_plain(raster, h=h, w=w, c=c))
 
 

@@ -7,6 +7,7 @@ fpng_tpu.golden.decode_memory, corrupted streams included.
 """
 
 import struct
+import zlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -202,3 +203,33 @@ def test_header_claiming_too_many_bytes_is_rejected(fuzz_pngs, monkeypatch):
     st = T.fpng_decode_memory(bytes(bad), 3, device="cpu")[0]
     assert st == C.FPNG_DECODE_NOT_FPNG == golden.decode_memory(bytes(bad),
                                                                 3)[0]
+
+
+@pytest.mark.parametrize("w,h,past_bound", [(512, 256, True),
+                                            (40, 40, False)])
+def test_relabelled_header_status_matches_fpng_tpu_and_golden(w, h,
+                                                              past_bound):
+    """A valid 20 x 20 file whose IHDR is rewritten to w x h with a valid
+    CRC.  Past the bound h * (1 + w * ch) > 258 * 8 * zlib_len the port
+    rejects it without a device pass (models/decoder.py); within it the
+    device decode rejects it.  The port, fpng_tpu.decode_batch and both
+    golden decoders give the same status."""
+    from fpng_tpu_torch import golden as TG
+
+    png = bytearray(T.encode_batch(np.full((1, 20, 20, 3), 7, np.uint8), 0,
+                                   device="cpu")[0])
+    assert png[58 + 2] & 6  # a dynamic block, not stored
+    zlib_len = int.from_bytes(png[50:54], "big")
+    assert (h * (1 + w * 3) > 258 * 8 * zlib_len) == past_bound
+    png[16:24] = struct.pack(">II", w, h)
+    png[29:33] = struct.pack(">I", zlib.crc32(bytes(png[12:29])))
+    png = bytes(png)
+    assert T.fpng_get_info(png)[:3] == (0, w, h)
+    d0, paths = decode_batch.device_images, dict(decode_batch.paths)
+    st = T.decode_batch([png], 3, device="cpu")[0]
+    assert (dict(decode_batch.paths) == paths) == past_bound
+    assert decode_batch.device_images == d0
+    want = F.decode_batch([png], 3)[0]
+    assert st == want == [C.FPNG_DECODE_NOT_FPNG]
+    assert TG.decode_memory(png, 3)[0] == golden.decode_memory(png, 3)[0] \
+        == C.FPNG_DECODE_NOT_FPNG

@@ -127,3 +127,17 @@ def test_b1_plain_drops_words_past_the_buffer():
     full, total, _ = encode_bits_plain(td, tt, torch.from_numpy(base), 1024)
     cut, total2, _ = encode_bits_plain(td, tt, torch.from_numpy(base), 40)
     assert torch.equal(cut, full[:, :40]) and torch.equal(total, total2)
+
+
+def test_b1_plain_saturates_totals_past_int32():
+    """Bit offsets are int64; total_bits and last_tok saturate at 2^31 - 1
+    (a stream that long is past every word and the stored-fallback budget),
+    as kernel B1's int32 outputs do."""
+    imgs = _batch(16, 16, 3)
+    _, (td, tt), (_, _, base) = _descs(imgs)
+    words, total, last = encode_bits_plain(td, tt, torch.from_numpy(base), 64)
+    near = torch.full_like(torch.from_numpy(base), 2 ** 31 - 100)
+    w2, t2, l2 = encode_bits_plain(td, tt, near, 64)
+    assert (t2 == 2 ** 31 - 1).all() and (l2 == 2 ** 31 - 1).all()
+    assert not w2.any()  # every unit lands past the 64 words
+    assert (total < 2 ** 31 - 1).all() and (last < total).all()

@@ -10,8 +10,8 @@ import torch
 import fpng_tpu_torch as T
 from fpng_tpu import constants as C
 from fpng_tpu_torch import bench
+from fpng_tpu_torch.ops.assemble import idat_crc_words
 from fpng_tpu_torch.ops.bitpack import deposit_bits, scatter_packed16
-from fpng_tpu_torch.ops.checksum import crc_chunks
 from fpng_tpu_torch.ops.encfuse import demote_mask, encode_bits_fused
 from fpng_tpu_torch.ops.expand import expand
 from fpng_tpu_torch.ops.specdec_tpu import finalize_records, walk_fix
@@ -20,9 +20,9 @@ from fpng_tpu_torch.tools.prof_depparts import depparts
 from fpng_tpu_torch.tools.prof_depparts import inputs as depparts_inputs
 from fpng_tpu_torch.tools.prof_int8mxu import int8_mxu
 
-WRAPPERS = (encode_bits_fused, crc_chunks, deposit_bits, walk_fix8,
-            finalize_records8, scatter_packed16, expand, demote_mask,
-            walk_fix, finalize_records, depparts, int8_mxu)
+WRAPPERS = (encode_bits_fused, idat_crc_words, deposit_bits,
+            walk_fix8, finalize_records8, scatter_packed16, expand,
+            demote_mask, walk_fix, finalize_records, depparts, int8_mxu)
 
 
 def test_import_leaves_out_jax_and_triton():
