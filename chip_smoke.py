@@ -11,7 +11,8 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      decode's shapes; B3-B6 on the decode of the headline corpus's own
      streams; B7 on the 32 bpp 1-pass corpus's cost-check inputs; B8 and
      B9 on the decode of the 24 bpp 2-pass corpus, which overflows
-     walk8), with CUDA-event times and a bytes/operations bound; B2 is
+     walk8), with CUDA-event times and a bytes/operations bound (B4 and
+     B9 also with the profiler's kernel time); B2 is
      the whole IDAT CRC, with the device activities of one
      launch_assemble counted by torch.profiler; then B3 once more on the
      32 bpp 1-pass corpus, whose overflowing images it stops at their
@@ -35,8 +36,12 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      past 2^27) and decodes it on the chunked decode;
   7. decodes corrupted streams against golden's statuses;
   probes: holds the probe kernels P1 (tools/prof_depparts, five modes) and
-     P2 (tools/prof_int8mxu, int8 and bf16) bit-exact against their plain
-     versions at the probes' own sizes, then runs each probe's main;
+     P2 (tools/prof_int8mxu, int8 and bf16, every one of its T output
+     slots) bit-exact against their plain versions at the probes' own
+     sizes, with P2's achieved TOP/s and share of the tensor-core peak and
+     the profiler's kernel time, each beside one PyTorch call doing the
+     same products (P1's dotbf16: one batched bf16 torch.matmul), then
+     runs each probe's main;
   stream: encode_batch_stream over 4 headline batches and 4 32 bpp 2-pass
      batches, byte-identical to encode_batch, and decode_batch_stream over
      the same files (one corrupted in the middle batch) against
@@ -65,6 +70,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +145,33 @@ def cuda_ms(torch, fn, reps):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def profiled_ms(torch, fn, reps=20):
+    """(ms, {kernel: [launches recorded, ms a launch]}): the device time of
+    one call of fn(), which launches each of its kernels once, by
+    torch.profiler over reps calls after a warm-up: the sum over kernels
+    of each one's mean recorded duration (the trace may miss some
+    launches; the CUDA-event time of cuda_ms also holds launch gaps and
+    host work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"\w+_kernel", e.name)
+            k = m.group(0) if m else e.name[:48]
+            n, t = per.get(k, (0, 0.0))
+            per[k] = (n + 1, t + (e.time_range.end - e.time_range.start)
+                      / 1e3)
+    per = {k: [n, t / n] for k, (n, t) in per.items()}
+    return sum(t for _, t in per.values()), per
 
 
 def bound(nbytes, ops, ops_s=OPS_S):
@@ -361,6 +394,8 @@ def phase_kernels(torch, imgs):
         ms=cuda_ms(torch, lambda: W.finalize_records8(*fin_args, **kw), 20),
         plain_ms=cuda_ms(torch, lambda: W.finalize_records8_plain(
             *fin_args, **kw), 3),
+        **profiler_line(profiled_ms(torch, lambda: W.finalize_records8(
+            *fin_args, **kw))),
         # 12 bytes a recorded row read, 8 bytes an output row written, 12
         # bytes a lane read, 12 a check triple written; ~60 ops a recorded
         # row, ~4 an output row
@@ -498,6 +533,11 @@ def phase_walk8_overflow(torch, T, imgs):
                  "1-pass corpus")
 
 
+def profiler_line(prof):
+    """The kernel-line keys of a profiled_ms result."""
+    return {"profiler_ms": prof[0], "profiler_kernels": prof[1]}
+
+
 def kernel_line(res):
     for name, r in res.items():
         if "bound" in r:
@@ -588,6 +628,8 @@ def phase_pk1(torch, T, imgs):
         ms=cuda_ms(torch, lambda: PK.finalize_records(*fin_args, **kw), 10),
         plain_ms=cuda_ms(torch, lambda: PK.finalize_records_plain(
             *fin_args, **kw), 2),
+        **profiler_line(profiled_ms(torch, lambda: PK.finalize_records(
+            *fin_args, **kw))),
         # as finalize_records8: 12 bytes a recorded row read, 8 an output
         # row written, 12 a lane read, 12 a check triple written
         bound=bound(12 * read_rows + 8 * out_rows + 12 * Bd * nc + 12 * Bd,
@@ -846,6 +888,16 @@ def phase_probes(torch):
             plain_ms=cuda_ms(torch, lambda: P1.depparts_plain(
                 cu, big, ohc0, mode), 3),
             bound_ms=bms, bound_by=by, library_ms=None)
+    # dotbf16's yardstick: the products of every step as one batched bf16
+    # matmul, (Bn, T*WPS*8, 4096) @ (Bn, 4096, 128), the sum over walks
+    # outside the call
+    lhs = big[:, :, :8].float().bfloat16()[:, None].expand(
+        Bn, Tn, wps, 8, P1.GROUP).reshape(Bn, Tn * wps * 8, P1.GROUP) \
+        .contiguous()
+    rhs16 = ohc0.float().bfloat16()
+    modes["dotbf16"]["library_ms"] = cuda_ms(
+        torch, lambda: torch.matmul(lhs, rhs16), 10)
+    del lhs, rhs16
     # dot's yardstick would be torch._int_mm on one walk's product
     try:
         torch._int_mm(big[0, 0, :8], ohc0[0])
@@ -890,14 +942,39 @@ def phase_probes(torch):
             lib_ms = cuda_ms(torch, lib, 5)
         except RuntimeError:
             lib_ms = None
+        slots = P2._int8_mxu_slots(a, b, dtype=dt, reps=reps, T=Tn2)
+        check(all(torch.equal(x, want) for x in slots),
+              f"P2 {dt}: a slot differs from plain")
+        del slots
         name = str(dt).replace("torch.", "")
+        ms = cuda_ms(torch, lambda: P2.int8_mxu(a, b, dtype=dt, reps=reps,
+                                                T=Tn2), 10)
+        prof = profiled_ms(torch, lambda: P2.int8_mxu(
+            a, b, dtype=dt, reps=reps, T=Tn2))
+        # the host's time to enqueue one call (two allocations, two
+        # launches through ctypes), with nothing waited for
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            P2.int8_mxu(a, b, dtype=dt, reps=reps, T=Tn2)
+        host_ms = (time.perf_counter() - t) * 1e2
+        torch.cuda.synchronize()
+        clocks = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip()
         dts[name] = dict(
-            max_abs_err=abs_err(got, want),
-            ms=cuda_ms(torch, lambda: P2.int8_mxu(a, b, dtype=dt, reps=reps,
-                                                  T=Tn2), 10),
+            max_abs_err=abs_err(got, want), ms=ms,
             plain_ms=cuda_ms(torch, lambda: P2.int8_mxu_plain(
                 a, b, dtype=dt, reps=reps), 3),
-            library_ms=lib_ms)
+            library_ms=lib_ms, **profiler_line(prof), host_ms=host_ms,
+            sm_clocks_after=clocks,
+            # achieved tera-operations/s and the share of this type's dense
+            # tensor-core peak, by CUDA events and by the profiler's time
+            tops=ops2 / ms / 1e9, peak_share=ops2 / ms / 1e-3 / peak,
+            profiler_tops=ops2 / prof[0] / 1e9,
+            profiler_peak_share=ops2 / prof[0] / 1e-3 / peak,
+            library_tops=ops2 / lib_ms / 1e9 if lib_ms else None)
         dts[name]["bound_ms"], dts[name]["bound_by"] = bound(
             4 * (a.numel() + b.numel()) + 4 * 128 * 128, ops2, peak)
         del lib, stack
@@ -1429,7 +1506,8 @@ def main():
          "launches": path_launches[name],
          **{k: kres[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "modes", "dtypes", "library_note")
+                                       "profiler_ms", "modes", "dtypes",
+                                       "library_note")
             if k in kres[name]}}
         for name, src, rep in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,9 +53,12 @@ _SIGNATURES = {
     "fpng_demote": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
     # cu, big, ohc0, B, T, WPS, M, src, prod, out, stream
     "fpng_depparts": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    # a, b, K, reps, T, bf16, out, stream
-    "fpng_int8mxu": [_P, _P, _I, _I, _I, _I, _P, _P],
+    # a, b, K, reps, T, bf16, scratch, out, stream
+    "fpng_int8mxu": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    # K, bf16 -> scratch bytes (restype long long)
+    "fpng_int8mxu_scratch": [_I, _I],
 }
+_RESTYPES = {"fpng_int8mxu_scratch": ctypes.c_longlong}
 
 _lib = None
 
@@ -129,7 +132,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = handle
     return _lib
 

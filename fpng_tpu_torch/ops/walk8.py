@@ -440,7 +440,8 @@ def finalize_records8(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
     (post-EOB garbage) deposit nothing, so every deposited slot is
     distinct.
 
-    A CUDA tensor launches csrc/finalize8.cu (one thread per lane).
+    A CUDA tensor launches csrc/finalize8.cu (a block a tile of lanes x
+    rows; the running offset a scan down each lane).
     """
     if posr.device.type == "cpu":
         return finalize_records8_plain(posr, raw0, raw1, nst, e_fin, out0,
@@ -456,7 +457,9 @@ finalize_records8.launches = 0
 
 def finalize_cuda(name: str, posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
                   h: int, bpl: int, c: int):
-    """One launch of csrc/finalize8.cu (finalize_records8's contract)."""
+    """One call of csrc/finalize8.cu (finalize_records8's contract): it
+    sets chk to (0, INF, INF) on the card, then runs the finalize; nothing
+    is copied from the host."""
     K.require_cuda(name, posr, raw0, raw1, nst, e_fin, out0)
     B, ST, NC = posr.shape
     if not 0 < k8 <= ST or not fits(h, bpl):
@@ -465,8 +468,7 @@ def finalize_cuda(name: str, posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
     dev = posr.device
     meta = torch.empty((B, k8, NC), dtype=torch.int32, device=dev)
     metb = torch.empty_like(meta)
-    chk = torch.tensor([0, INF, INF], dtype=torch.int32,
-                       device=dev).repeat(B, 1)
+    chk = torch.empty((B, 3), dtype=torch.int32, device=dev)  # set by it
     K.check(K.lib().fpng_finalize8(
         posr.data_ptr(), raw0.data_ptr(), raw1.data_ptr(), ST,
         nst.data_ptr(), e_fin.data_ptr(), out0.data_ptr(), B, NC, k8, h, bpl,

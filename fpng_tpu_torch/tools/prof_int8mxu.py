@@ -4,7 +4,7 @@
 The TPU probe asked whether s8 x s8 -> s32 dots lower on its matrix unit
 and at what rate against bf16.  Here the same product,
 out = sum over r < reps of cast(a + r) @ cast(b), runs as the hand-written
-mma.sync kernel csrc/prof_int8mxu.cu (int8_mxu), T times over, and is timed
+wgmma kernel csrc/prof_int8mxu.cu (int8_mxu), T times over, and is timed
 with CUDA events.
 
     python -m fpng_tpu_torch.tools.prof_int8mxu
@@ -14,6 +14,8 @@ card's name.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -59,7 +61,8 @@ def int8_mxu_plain(a: torch.Tensor, b: torch.Tensor, *, dtype,
 def int8_mxu(a: torch.Tensor, b: torch.Tensor, *, dtype, reps: int,
              T: int) -> torch.Tensor:
     """Kernel P2's wrapper: the product of int8_mxu_plain, done T times on
-    the card (each time into its own output slot; the last is returned).
+    the card (each time in full into its own output slot; the last is
+    returned).
 
     a (128, K) and b (K, 128) int32, K a multiple of 32; dtype torch.int8
     or torch.bfloat16.  A CPU tensor takes int8_mxu_plain (T is then
@@ -68,18 +71,35 @@ def int8_mxu(a: torch.Tensor, b: torch.Tensor, *, dtype, reps: int,
     """
     if a.device.type == "cpu":
         return int8_mxu_plain(a, b, dtype=dtype, reps=reps)
+    return _int8_mxu_slots(a, b, dtype=dtype, reps=reps, T=T)[T - 1]
+
+
+def _int8_mxu_slots(a, b, *, dtype, reps: int, T: int) -> torch.Tensor:
+    """One call of csrc/prof_int8mxu.cu: all T output slots, (T, 128, 128)
+    int32 (its first launch stages the operands into scratch, its second
+    runs the products)."""
     K.require_cuda("int8_mxu", a, b)
     Kd = a.shape[1]
     if a.shape != (128, Kd) or b.shape != (Kd, 128) or Kd % 32 or \
-            dtype not in DTYPES or reps < 0 or T < 1:
+            dtype not in DTYPES or reps < 0 or not 1 <= T <= 65535:
         raise ValueError("int8_mxu: a (128, K), b (K, 128), K a multiple of "
-                         "32, dtype int8 or bfloat16, reps >= 0, T >= 1")
+                         "32, dtype int8 or bfloat16, reps >= 0, "
+                         "1 <= T <= 65535")
+    bf16 = int(dtype == torch.bfloat16)
+    scratch = torch.empty(_scratch_bytes(Kd, bf16), dtype=torch.uint8,
+                          device=a.device)
     out = torch.empty((T, 128, 128), dtype=torch.int32, device=a.device)
     K.check(K.lib().fpng_int8mxu(
-        a.data_ptr(), b.data_ptr(), Kd, reps, T, int(dtype == torch.bfloat16),
+        a.data_ptr(), b.data_ptr(), Kd, reps, T, bf16, scratch.data_ptr(),
         out.data_ptr(), K.stream_ptr(a.device)), "fpng_int8mxu")
     int8_mxu.launches += 1
-    return out[T - 1]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(K_: int, bf16: int) -> int:
+    """The kernel's scratch size, from the library (asked once a shape)."""
+    return K.lib().fpng_int8mxu_scratch(K_, bf16)
 
 
 int8_mxu.launches = 0

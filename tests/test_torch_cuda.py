@@ -499,3 +499,89 @@ def test_walk8_overflow_decodes_on_pk1_on_card():
     assert decode_batch.paths["pk1"] == k0 + 1
     assert PK.walk_fix.launches > b0[0]
     assert PK.finalize_records.launches == b0[1] + 1
+
+
+def _finalize_cases():
+    """Real walk8 records (the 256 x 256 multi-block stream, ST = 96) and
+    PK=1 records (the 2-pass tiles whose first overflows walk8, ST = 536),
+    with the offsets and entries of the decode's own epilogue."""
+    _, (stream, luts, p0, zl) = _walk_inputs("multiblock")
+    nc = W.n_chunks(int(zl.max()))
+    args = (stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda())
+    records, e_fin, out0, *_ = W.decode_walk8(*args, n_chunks=nc)
+    yield "walk8", W.finalize_records8, (*records, e_fin, out0), \
+        (256, 256, 3)
+    _, _, (stream, luts, p0, zl) = _overflowing_batch()
+    nc = W.n_chunks(int(zl.max()))
+    args = (stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda())
+    records, e_fin, out0, *_ = W.walk_offsets(PK.walk_fix, *args,
+                                              n_chunks=nc)
+    yield "pk1", PK.finalize_records, (*records, e_fin, out0), (32, 32, 4)
+
+
+def test_finalize_tiles_match_plain():
+    """B4 and B9 at k8 in {1, 17, 96, 536} (up to each walk's rows) on real
+    records, with the lane count cut to one that is not a multiple of the
+    kernel's 32-lane tile: meta, metb and chk equal the plain version's,
+    and one profiled call copies nothing from the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, fn, full, (h, w, c) in _finalize_cases():
+        NC = full[0].shape[2]
+        cut = NC - 5 if NC % 32 == 0 else NC
+        args = [a[..., :cut].contiguous() for a in full]
+        assert cut % 32 != 0
+        for k8 in (1, 17, 96, 536):
+            if k8 > args[0].shape[1]:
+                continue
+            kw = dict(k8=k8, h=h, bpl=w * c, c=c)
+            n0 = fn.launches
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches == n0 + 1
+            want = W.finalize_records8_plain(*(a.cpu() for a in args), **kw)
+            for g, w_ in zip(got, want):
+                assert torch.equal(g.cpu(), w_), (name, k8)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args, **kw)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        assert any("finalize8" in n for n in names), names
+        assert not [n for n in names if "HtoD" in n], names
+
+
+def _p2_operands(K, dtype, seed):
+    """int8: a in [0, 1000), b in [-300, 300), so both casts wrap; bf16: a
+    in [0, 300), so a + r rounds, and b in {-1, 0, 1}, so every partial
+    sum stays below 2^24 at K = 4096, reps = 8 and the float32 sums are
+    exact."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int8:
+        a = rng.integers(0, 1000, (128, K))
+        b = rng.integers(-300, 300, (K, 128))
+    else:
+        a = rng.integers(0, 300, (128, K))
+        b = rng.integers(-1, 2, (K, 128))
+    return (torch.from_numpy(a.astype(np.int32)),
+            torch.from_numpy(b.astype(np.int32)))
+
+
+@pytest.mark.parametrize("reps", [0, 1, 3, 8])
+@pytest.mark.parametrize("K", [32, 256, 4096])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+def test_int8_mxu_every_slot_matches_plain(dtype, K, reps):
+    """P2 at T in {1, 2, 65}: every one of the T output slots equals the
+    plain product, and the public wrapper returns slot T - 1."""
+    a, b = _p2_operands(K, dtype, seed=K + reps)
+    want = TP2.int8_mxu_plain(a, b, dtype=dtype, reps=reps)
+    ac, bc = a.cuda(), b.cuda()
+    for Tn in (1, 2, 65):
+        n0 = TP2.int8_mxu.launches
+        slots = TP2._int8_mxu_slots(ac, bc, dtype=dtype, reps=reps, T=Tn)
+        torch.cuda.synchronize()
+        assert TP2.int8_mxu.launches == n0 + 1
+        assert slots.shape == (Tn, 128, 128)
+        assert all(torch.equal(s.cpu(), want) for s in slots), Tn
+        assert torch.equal(TP2.int8_mxu(ac, bc, dtype=dtype, reps=reps,
+                                        T=Tn).cpu(), want)

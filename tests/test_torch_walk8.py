@@ -434,3 +434,232 @@ def test_walk8_gate_counts_allocated_rows(h, w, c, fits):
                                         (95, 96), (96, 96)])
 def test_trim_steps(steps, want):
     assert TW.trim_steps(steps, 96) == want
+
+
+# ---------------------------------------------------------------------------
+# B4's tiling (csrc/finalize8.cu): a Python twin against the plain version
+# ---------------------------------------------------------------------------
+
+FIN_LANES, FIN_WARPS, FIN_ROWS = 32, 8, 4  # kFinLanes, kFinWarps, kFinRows
+INF = TW.INF
+
+
+def _fastdiv(d):
+    """make_fastdiv: (m, k) with n // d == (n * m) >> k for 0 <= n < 2^31."""
+    k = 31 + (int(d - 1).bit_length() if d > 1 else 0)
+    return ((1 << k) + d - 1) // d, k
+
+
+def _fdiv(n, fd):
+    return (np.asarray(n).astype(np.uint64) * np.uint64(fd[0])) >> \
+        np.uint64(fd[1])
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 7, 13, 97, 256, 769, 11521,
+                               (1 << 20) + 1, (1 << 30) - 1])
+def test_finalize_fastdiv_is_exact(d):
+    """The finalize's multiply-shift division equals integer division over
+    0 <= n < 2^31: near 0 and 2^31, on both sides of random multiples of
+    d and of the last one below 2^31, and on random n (n * m stays below
+    2^64)."""
+    rng = np.random.default_rng(d)
+    m, k = fd = _fastdiv(d)
+    assert m < 1 << 33 and k <= 62
+    top = (1 << 31) - 1
+    mult = rng.integers(1, top // d + 1, 2000)[:, None] * d + \
+        np.arange(-1, 2)
+    n = np.concatenate([
+        np.arange(0, 3000), top - np.arange(0, 3000), mult.ravel(),
+        (top // d) * d + np.arange(-2, 2), rng.integers(0, 1 << 31, 20000)])
+    n = n[(n >= 0) & (n <= top)].astype(np.int64)
+    assert int(n.max()) * m < 1 << 64
+    assert np.array_equal(_fdiv(n, fd).astype(np.int64), n // d)
+
+
+def _finalize_twin(posr, raw0, raw1, nst, e_fin, out0, *, k8, h, bpl, c):
+    """csrc/finalize8.cu step by step: a block takes 32 lanes of one image
+    and walks down them in tiles of 8 warps x 4 rows; each warp loads its
+    4 rows of every lane (rows past the step count read as zeros), sums
+    their output lengths, the warp sums are scanned on top of the column
+    total carried from the tiles above, then each row's record and checks
+    follow from its offset; the checks reduce per thread, per warp, per
+    block, and one set of atomics a block updates chk."""
+    posr, raw0, raw1, nst, e_fin, out0 = (
+        np.asarray(a, np.int64) for a in (posr, raw0, raw1, nst, e_fin,
+                                          out0))
+    B, _, NC = posr.shape
+    rs, total, n_slots = bpl + 1, h * (bpl + 1), h * bpl
+    frs, fc = _fastdiv(rs), _fastdiv(c)
+    meta = np.full((B, k8, NC), -1, np.int64)
+    metb = np.full((B, k8, NC), -1, np.int64)
+    chk = np.tile(np.array([0, INF, INF], np.int64), (B, 1))
+    W_, R = FIN_WARPS, FIN_ROWS
+    for b in range(B):
+        for l0 in range(0, NC, FIN_LANES):
+            lc = l0 + np.arange(FIN_LANES)
+            act = lc < NC
+            lcc = np.minimum(lc, NC - 1)
+            e_l = np.where(act, e_fin[b, lcc], 0)
+            n_l = np.where(act, nst[b, lcc], 0)
+            carry = np.where(act, out0[b, lcc], 0)
+            fail = np.zeros((W_, FIN_LANES), bool)
+            eobm = np.full((W_, FIN_LANES), INF, np.int64)
+            badm = eobm.copy()
+            for t0 in range(0, k8, W_ * R):
+                j = t0 + np.arange(W_)[:, None] * R + np.arange(R)  # (W, R)
+                live = act & (j[..., None] < k8) & (j[..., None] < n_l)
+                jc = np.minimum(j, posr.shape[1] - 1)[..., None]
+                p = np.where(live, posr[b, jc, lcc], 0)
+                r0 = np.where(live, raw0[b, jc, lcc], 0)
+                r1 = np.where(live, raw1[b, jc, lcc], 0)
+                recbit = ((r0 >> 9) & 1) == 1
+                clen = (r0 >> 19) & 15
+                dem = recbit & (r1 != 0) & (p < e_l) & (p + clen == e_l)
+                rec = (recbit & (p >= e_l)) | dem
+                outlen = np.where(dem, 1, (r0 >> 10) & 511)
+                part = np.where(rec, outlen, 0).sum(axis=1)  # (W, lanes)
+                pre = carry + np.cumsum(part, axis=0) - part
+                carry = carry + part.sum(axis=0)
+                # within a warp, its rows in order
+                op_all = pre[:, None] + np.cumsum(
+                    np.where(rec, outlen, 0), axis=1) - np.where(
+                    rec, outlen, 0)
+                for w in range(W_):
+                    for i in range(R):
+                        jj = t0 + w * R + i
+                        if jj >= k8:
+                            continue
+                        ok = act
+                        op, sym0 = op_all[w, i], r0[w, i] & 511
+                        s2 = r1[w, i] & 0xFF
+                        d, rc, ol = dem[w, i], rec[w, i], outlen[w, i]
+                        sym = np.where(d, s2, sym0)
+                        two = rc & (r1[w, i] != 0) & ~d
+                        q = _fdiv(op, frs).astype(np.int64)
+                        rowpos = op - q * rs
+                        rowpos2 = np.where(rowpos + 1 == rs, 0, rowpos + 1)
+                        lit = rc & (sym < 256) & (rowpos != 0) & (op < total)
+                        lit2 = two & (rowpos2 != 0) & (op + 1 < total)
+                        lit2o = lit2 & ~lit
+                        off = q * bpl + np.where(lit2o, rowpos2, rowpos) - 1
+                        meta[b, jj, lc[ok]] = np.clip(off, 0, n_slots)[ok]
+                        val = np.where(lit | lit2o, np.where(
+                            lit, sym, s2) | 0x100, 0) | np.where(
+                            lit & lit2, (s2 | 0x100) << 16, 0)
+                        metb[b, jj, lc[ok]] = val[ok]
+                        lv = rc & (op < total)
+                        x = rowpos - 1
+                        f = lv & (sym > 285)
+                        fexp = np.where(op >= rs, 2, 0)
+                        f |= lv & (rowpos == 0) & ((sym >= 256) |
+                                                   (sym != fexp))
+                        xm = np.maximum(x, 0)
+                        xc = (rowpos >= 1) & (
+                            xm - _fdiv(xm, fc).astype(np.int64) * c == 0)
+                        mok = xc & (ol - _fdiv(ol, fc).astype(np.int64) * c
+                                    == 0) & (x + ol <= bpl)
+                        f |= lv & (((r0[w, i] >> 23) & 1) == 1) & ~mok
+                        f |= lv & (rowpos >= 1) & ~xc & (sym >= 256)
+                        f |= lv & (sym == 256)
+                        at = rc & (op == total)
+                        eobm[w] = np.where(at & (sym == 256) & ok, np.minimum(
+                            eobm[w], p[w, i] + clen[w, i]), eobm[w])
+                        badm[w] = np.where(at & (sym != 256) & ok, np.minimum(
+                            badm[w], p[w, i]), badm[w])
+                        op2 = op + 1
+                        f |= two & (op2 < total) & (rowpos2 == 0) & \
+                            (s2 != np.where(op2 >= rs, 2, 0))
+                        badm[w] = np.where(two & (op2 == total) & ok,
+                                           np.minimum(badm[w], p[w, i] +
+                                                      clen[w, i]), badm[w])
+                        fail[w] |= f & ok
+            # warp vote / min, then the block, then one set of atomics
+            wf, we, wb = fail.any(axis=1), eobm.min(axis=1), badm.min(axis=1)
+            if wf.any():
+                chk[b, 0] |= 1
+            chk[b, 1] = min(chk[b, 1], we.min())
+            chk[b, 2] = min(chk[b, 2], wb.min())
+    assert (meta >= 0).all() and (metb >= -(1 << 31)).all()
+    return (torch.from_numpy(meta.astype(np.int32)),
+            torch.from_numpy(metb.astype(np.int64).astype(np.int32)),
+            torch.from_numpy(chk.astype(np.int32)))
+
+
+def _synthetic_records(rng, B, ST, NC, *, h, bpl, c):
+    """Walk-like records: each lane's steps advance its bit position by
+    clen; literal (1 or 2), match and EOB steps; some steps before e_fin,
+    one two-literal step per image ending exactly at e_fin (demoted);
+    lanes with no steps; offsets spread over and past the raster."""
+    total = h * (bpl + 1)
+    posr = np.zeros((B, ST, NC), np.int64)
+    raw0 = np.zeros_like(posr)
+    raw1 = np.zeros_like(posr)
+    nst = rng.integers(0, ST + 1, (B, NC))
+    nst[:, ::7] = 0
+    e_fin = rng.integers(0, 40, (B, NC))
+    for b in range(B):
+        for lc in range(NC):
+            pos = int(rng.integers(0, 30))
+            for j in range(ST):
+                clen = int(rng.integers(1, 16))
+                kind = rng.random()
+                if kind < 0.55:
+                    sym, outl, r1 = int(rng.integers(0, 256)), 1, 0
+                    if rng.random() < 0.4:  # two literals
+                        outl, r1 = 2, 0x100 | int(rng.integers(0, 256))
+                    m = 0
+                elif kind < 0.9:
+                    sym, outl, r1, m = 257 + int(rng.integers(0, 29)), \
+                        c * int(rng.integers(1, 4)) + int(rng.random() < 0.2),\
+                        0, 1
+                elif kind < 0.95:
+                    sym, outl, r1, m = 256, 0, 0, 0
+                else:
+                    sym, outl, r1, m = int(rng.choice([0, 2, 300])), 1, 0, 0
+                recbit = int(rng.random() < 0.92)
+                posr[b, j, lc] = pos
+                raw0[b, j, lc] = sym | recbit << 9 | outl << 10 | \
+                    clen << 19 | m << 23
+                raw1[b, j, lc] = r1
+                pos += clen
+        # a two-literal step whose second literal starts at e_fin
+        lc = NC // 2
+        nst[b, lc] = max(nst[b, lc], 3)
+        raw0[b, 1, lc] = 65 | 1 << 9 | 2 << 10 | 5 << 19
+        raw1[b, 1, lc] = 0x100 | 66
+        e_fin[b, lc] = posr[b, 1, lc] + 5
+    # rows past a lane's step count hold junk the finalize must not read
+    junk = np.arange(ST)[None, :, None] >= nst[:, None]
+    raw0 = np.where(junk, 0x7FFFFFFF, raw0)
+    out0 = rng.integers(0, total + 3, (B, NC))
+    out0[:, 0] = 0
+    out0[0, 1] = total - 1
+    return [torch.from_numpy(a.astype(np.int32)) for a in
+            (posr, raw0, raw1, nst, e_fin, out0)]
+
+
+@pytest.mark.parametrize("B,ST,NC,k8", [
+    (2, 40, 37, 17),    # k8 and NC not multiples of the row and lane tiles
+    (2, 96, 70, 96),    # walk8's rows: three tiles
+    (1, 70, 32, 45),    # one full lane tile, a partial last row tile
+    (3, 9, 5, 1)])      # one row, fewer lanes than a warp
+def test_finalize_tiling_matches_plain(B, ST, NC, k8):
+    """The tile decomposition of csrc/finalize8.cu (Python twin) gives
+    finalize_records8_plain's meta, metb and chk exactly, on records with
+    dead lanes (nst = 0), junk past each lane's step count, and a demoted
+    two-literal step at e_fin."""
+    rng = np.random.default_rng(ST * 100 + NC)
+    h, bpl, c = 6, 9, 3
+    rec = _synthetic_records(rng, B, ST, NC, h=h, bpl=bpl, c=c)
+    kw = dict(k8=k8, h=h, bpl=bpl, c=c)
+    want = TW.finalize_records8_plain(*rec, **kw)
+    got = _finalize_twin(*rec, **kw)
+    for g, w_, what in zip(got, want, ("meta", "metb", "chk")):
+        assert torch.equal(g, w_), what
+    posr, raw0, raw1, nst, e_fin, _ = rec
+    e3 = e_fin[:, None]
+    dem = (((raw0 >> 9) & 1) == 1) & (raw1 != 0) & (posr < e3) & \
+        (posr + ((raw0 >> 19) & 15) == e3) & \
+        (torch.arange(ST)[None, :, None] < torch.clamp(nst, max=k8)[:, None])
+    assert bool((nst == 0).any())
+    assert bool(dem.any()) or k8 == 1
