@@ -11,8 +11,9 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      decode's shapes; B3-B6 on the decode of the headline corpus's own
      streams; B7 on the 32 bpp 1-pass corpus's cost-check inputs; B8 and
      B9 on the decode of the 24 bpp 2-pass corpus, which overflows
-     walk8), with CUDA-event times and a bytes/operations bound (B4 and
-     B9 also with the profiler's kernel time); B2 is
+     walk8), with CUDA-event times and a bytes/operations bound (B4, B5
+     and B9 also with the profiler's kernel time; B5 on the finalize's
+     (B, k8, NC) records and flattened to (B, N)); B2 is
      the whole IDAT CRC, with the device activities of one
      launch_assemble counted by torch.profiler; then B3 once more on the
      32 bpp 1-pass corpus, whose overflowing images it stops at their
@@ -35,13 +36,13 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
   large_raster_2g: encodes one 1 x 6144 x 7680 x 3 raster (141.6 M bytes,
      past 2^27) and decodes it on the chunked decode;
   7. decodes corrupted streams against golden's statuses;
-  probes: holds the probe kernels P1 (tools/prof_depparts, five modes) and
-     P2 (tools/prof_int8mxu, int8 and bf16, every one of its T output
-     slots) bit-exact against their plain versions at the probes' own
-     sizes, with P2's achieved TOP/s and share of the tensor-core peak and
-     the profiler's kernel time, each beside one PyTorch call doing the
-     same products (P1's dotbf16: one batched bf16 torch.matmul), then
-     runs each probe's main;
+  probes: holds the probe kernels P1 (tools/prof_depparts, all seven
+     modes) and P2 (tools/prof_int8mxu, int8 and bf16), each in every one
+     of its T output slots, bit-exact against their plain versions at the
+     probes' own sizes, with the profiler's kernel time, P2's achieved
+     TOP/s and share of the tensor-core peak, each beside PyTorch calls
+     doing the same products (P1's dotbf16: one batched bf16 torch.matmul;
+     dot: one torch._int_mm an image), then runs each probe's main;
   stream: encode_batch_stream over 4 headline batches and 4 32 bpp 2-pass
      batches, byte-identical to encode_batch, and decode_batch_stream over
      the same files (one corrupted in the middle batch) against
@@ -55,9 +56,17 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
 
 times B6 alone (CUDA events, launches a call, held against expand_plain)
 on the walk8 decode rasters of the headline and 4K corpora, and prints no
-ok line.  It calls only functions whose contracts older checkouts share,
-so a copy of this file at the root of such a checkout times that
-checkout's B6 on the same rasters.
+ok line.  It calls only functions whose contracts checkouts since B5 took
+(B, S, NC) records share, so a copy of this file at the root of such a
+checkout times that checkout's B6 on the same rasters.
+
+    python3 chip_smoke.py --p1
+
+times P1 alone in all seven modes (CUDA events, the profiler's kernel
+time, the host's enqueue time, bounds, the library calls), step T-1 held
+against depparts_plain, and prints no ok line.  It calls only depparts,
+depparts_plain and inputs, so a copy of this file at the root of any
+checkout since P1 was ported times that checkout's P1.
 
 The launch counters are set to 0 just before each path and read just
 after, to show that the path went through its kernels.  One line of
@@ -404,21 +413,26 @@ def phase_kernels(torch, imgs):
         shape=[Bd, k8, nc], read_rows=read_rows)
 
     n_slots = H * W_ * Cc
-    meta, metb = (a.reshape(Bd, -1) for a in g5[:2])
+    meta, metb = g5[:2]  # (B, k8, NC), as finish_decode passes them
     g6 = scatter_packed16(meta, metb, n_slots)
     w6 = scatter_packed16_plain(meta, metb, n_slots)
     check(torch.equal(g6, w6), "B5 raster differs from plain")
+    check(torch.equal(scatter_packed16(meta.reshape(Bd, -1),
+                                       metb.reshape(Bd, -1), n_slots), w6),
+          "B5 on the flattened (B, N) records differs from plain")
     lit_records = int((metb != 0).sum())
     res["scatter_packed16"] = dict(
         max_abs_err=masked_err(g6, w6),
         ms=cuda_ms(torch, lambda: scatter_packed16(meta, metb, n_slots), 20),
         plain_ms=cuda_ms(torch, lambda: scatter_packed16_plain(
             meta, metb, n_slots), 5),
+        **profiler_line(profiled_ms(torch, lambda: scatter_packed16(
+            meta, metb, n_slots))),
         # the value word of every record read, the slot word of each record
         # that carries a literal, the raster written once; ~8 ops a record
         bound=bound(4 * meta.numel() + 4 * lit_records + 2 * Bd * n_slots,
                     8 * meta.numel()),
-        shape=[Bd, meta.shape[1]], n_slots=n_slots, lit_records=lit_records)
+        shape=list(meta.shape), n_slots=n_slots, lit_records=lit_records)
 
     g7 = check_expand(torch, g6, imgs[device_decoded(pngs)],
                       "the headline walk8 decode")
@@ -583,7 +597,8 @@ def phase_pk1(torch, T, imgs):
     batch whose streams overflow walk8's 96 step rows."""
     from fpng_tpu_torch.ops import specdec_tpu as PK
     from fpng_tpu_torch.ops import walk8 as W
-    from fpng_tpu_torch.ops.bitpack import scatter_packed16
+    from fpng_tpu_torch.ops.bitpack import (scatter_packed16,
+                                            scatter_packed16_plain)
 
     B, H, W_, Cc = imgs.shape
     pngs = T.encode_batch(imgs, T.FPNG_ENCODE_SLOWER, device=DEV)
@@ -635,8 +650,10 @@ def phase_pk1(torch, T, imgs):
         bound=bound(12 * read_rows + 8 * out_rows + 12 * Bd * nc + 12 * Bd,
                     60 * read_rows + 4 * out_rows),
         shape=[Bd, k8, nc], read_rows=read_rows)
-    raster = scatter_packed16(g5[0].reshape(Bd, -1), g5[1].reshape(Bd, -1),
-                              H * W_ * Cc)
+    raster = scatter_packed16(g5[0], g5[1], H * W_ * Cc)
+    check(torch.equal(raster, scatter_packed16_plain(g5[0], g5[1],
+                                                     H * W_ * Cc)),
+          "B5 on the PK=1 records differs from plain")
     check_expand(torch, raster, imgs[device_decoded(pngs)], "the PK=1 "
                  "decode of the 24 bpp 2-pass corpus")
     return kernel_line(res)
@@ -667,21 +684,18 @@ def pk1_raster(torch, dec_args, nc, h, bpl, c):
     """The PK=1 chain (B8, B9, B5) up to B6's input raster."""
     from fpng_tpu_torch.ops import specdec_tpu as PK
     from fpng_tpu_torch.ops import walk8 as W
-    from fpng_tpu_torch.ops.bitpack import scatter_packed16
 
     records, e_fin, out0, steps, _, _ = W.walk_offsets(
         PK.walk_fix, *dec_args, n_chunks=nc)
     k8 = W.trim_steps(int(steps), PK.ST8)
     meta, metb, _ = PK.finalize_records(*records, e_fin, out0, k8=k8, h=h,
                                         bpl=bpl, c=c)
-    B = meta.shape[0]
-    return scatter_packed16(meta.reshape(B, -1), metb.reshape(B, -1), h * bpl)
+    return b5_checked(torch, meta, metb, h * bpl)
 
 
 def walk8_raster(torch, dec_args, nc, h, bpl, c):
     """The walk8 chain (B3, B4, B5) up to B6's input raster."""
     from fpng_tpu_torch.ops import walk8 as W
-    from fpng_tpu_torch.ops.bitpack import scatter_packed16
 
     records, e_fin, out0, steps, ovf, _ = W.decode_walk8(*dec_args,
                                                          n_chunks=nc)
@@ -689,8 +703,18 @@ def walk8_raster(torch, dec_args, nc, h, bpl, c):
     k8 = W.trim_steps(int(steps), records[0].shape[1])
     meta, metb, _ = W.finalize_records8(*records, e_fin, out0, k8=k8, h=h,
                                         bpl=bpl, c=c)
-    B = meta.shape[0]
-    return scatter_packed16(meta.reshape(B, -1), metb.reshape(B, -1), h * bpl)
+    return b5_checked(torch, meta, metb, h * bpl)
+
+
+def b5_checked(torch, meta, metb, n_slots):
+    """B5 on (B, k8, NC) records, held against its plain version."""
+    from fpng_tpu_torch.ops.bitpack import (scatter_packed16,
+                                            scatter_packed16_plain)
+
+    raster = scatter_packed16(meta, metb, n_slots)
+    check(torch.equal(raster, scatter_packed16_plain(meta, metb, n_slots)),
+          f"B5 on {list(meta.shape)} records differs from plain")
+    return raster
 
 
 def expand_times(torch, T, bench):
@@ -851,15 +875,17 @@ def phase_large_raster_2g(torch, T, reset, read):
          launches=launches)
 
 
-def phase_probes(torch):
-    """P1 in the probe's five modes and P2 in both operand types against
-    their plain versions at the probes' own sizes, with CUDA-event times,
-    bounds and, where one PyTorch call does the same products, its time."""
-    from fpng_tpu_torch.tools import prof_depparts as P1
-    from fpng_tpu_torch.tools import prof_int8mxu as P2
+def abs_err(torch, a, b):
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    def abs_err(a, b):
-        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+def p1_times(torch):
+    """P1 in all seven modes at the probe's size: step T-1 against the
+    plain version, CUDA-event and profiler times, the host's enqueue time
+    of one call, bounds, and the library calls doing the same products.
+    It calls only functions whose contracts every checkout since P1 was
+    ported shares (depparts, depparts_plain, inputs)."""
+    from fpng_tpu_torch.tools import prof_depparts as P1
 
     cu, big, ohc0 = P1.inputs(device=DEV)
     Bn, Tn, R, _ = cu.shape
@@ -870,49 +896,75 @@ def phase_probes(torch):
     # step), big's rows 0..7, ohc0 - and the (B, 8, 128) output written
     b_cu, b_big, b_ohc = 4 * cu.numel(), Bn * wps * 8 * P1.GROUP, ohc0.numel()
     b_out = 4 * Bn * 8 * 128
+    full_bound = bound(b_cu + b_big + b_out, ops, TC_INT8_OPS_S)
     mode_bound = {
-        "full": bound(b_cu + b_big + b_out, ops, TC_INT8_OPS_S),
+        "full": full_bound, "fulli8cmp": full_bound,
+        "fullbf16": bound(b_cu + b_big + b_out, ops, TC_BF16_OPS_S),
         "ohc": bound(b_cu + b_out, 0),
         "dot": bound(b_big + b_ohc + b_out, ops, TC_INT8_OPS_S),
         "dotbf16": bound(b_big + b_ohc + b_out, ops, TC_BF16_OPS_S),
         "none": bound(Bn * 8 * 128 + b_out, 0)}
     modes = {}
-    for mode in P1.MODES:
+    for mode in P1.ALL_MODES:
         got = P1.depparts(cu, big, ohc0, mode)
         want = P1.depparts_plain(cu, big, ohc0, mode)
         check(torch.equal(got, want), f"P1 {mode} differs from plain")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            P1.depparts(cu, big, ohc0, mode)
+        host_ms = (time.perf_counter() - t) * 1e2
         bms, by = mode_bound[mode]
         modes[mode] = dict(
-            max_abs_err=abs_err(got, want),
+            max_abs_err=abs_err(torch, got, want),
             ms=cuda_ms(torch, lambda: P1.depparts(cu, big, ohc0, mode), 10),
             plain_ms=cuda_ms(torch, lambda: P1.depparts_plain(
                 cu, big, ohc0, mode), 3),
-            bound_ms=bms, bound_by=by, library_ms=None)
-    # dotbf16's yardstick: the products of every step as one batched bf16
-    # matmul, (Bn, T*WPS*8, 4096) @ (Bn, 4096, 128), the sum over walks
-    # outside the call
-    lhs = big[:, :, :8].float().bfloat16()[:, None].expand(
-        Bn, Tn, wps, 8, P1.GROUP).reshape(Bn, Tn * wps * 8, P1.GROUP) \
-        .contiguous()
+            **profiler_line(profiled_ms(torch, lambda: P1.depparts(
+                cu, big, ohc0, mode))),
+            host_ms=host_ms, bound_ms=bms, bound_by=by, library_ms=None)
+    # the library yardsticks: every step's products, the sum over walks
+    # outside the calls.  dotbf16: one batched bf16 matmul, (B, T*WPS*8,
+    # 4096) @ (B, 4096, 128); dot: torch._int_mm on each image's stacked
+    # product, (T*WPS*8, 4096) @ (4096, 128), B calls (it refuses m = 8)
+    lhs8 = big[:, :, :8][:, None].expand(Bn, Tn, wps, 8, P1.GROUP) \
+        .reshape(Bn, Tn * wps * 8, P1.GROUP).contiguous()
+    lhs = lhs8.float().bfloat16()
     rhs16 = ohc0.float().bfloat16()
     modes["dotbf16"]["library_ms"] = cuda_ms(
         torch, lambda: torch.matmul(lhs, rhs16), 10)
-    del lhs, rhs16
-    # dot's yardstick would be torch._int_mm on one walk's product
-    try:
-        torch._int_mm(big[0, 0, :8], ohc0[0])
-        modes["dot"]["library_ms"] = cuda_ms(torch, lambda: [
-            torch._int_mm(big[b, k, :8], ohc0[b]) for b in range(Bn)
-            for _ in range(Tn) for k in range(wps)], 1)
-        lib_note = "dot: B*T*WPS torch._int_mm calls"
-    except RuntimeError as e:
-        lib_note = (f"dot: torch._int_mm refuses (8, 4096) x (4096, 128): "
-                    f"{str(e).splitlines()[0][:160]}")
+    rhs8 = [ohc0[b].t().contiguous().t() for b in range(Bn)]  # column-major
+    check(torch.equal(torch._int_mm(lhs8[0], rhs8[0])[:8],
+                      (big[0, 0, :8].double() @ ohc0[0].double()).int()),
+          "torch._int_mm on the stacked product")
+    modes["dot"]["library_ms"] = cuda_ms(torch, lambda: [
+        torch._int_mm(lhs8[b], rhs8[b]) for b in range(Bn)], 10)
+    return modes, [Bn, Tn, wps, big.shape[2]]
+
+
+def phase_probes(torch):
+    """P1 in all seven modes (every one of the T output slots) and P2 in
+    both operand types against their plain versions at the probes' own
+    sizes, with CUDA-event and profiler times, bounds and, where PyTorch
+    calls do the same products, their time."""
+    from fpng_tpu_torch.tools import prof_depparts as P1
+    from fpng_tpu_torch.tools import prof_int8mxu as P2
+
+    cu, big, ohc0 = P1.inputs(device=DEV)
+    for mode in P1.ALL_MODES:  # every step's slot against the plain version
+        slots = P1._depparts_slots(cu, big, ohc0, mode)
+        bad = [t for t in range(cu.shape[1]) if not torch.equal(
+            slots[:, t], P1.depparts_plain(cu[:, t:t + 1], big, ohc0, mode))]
+        check(not bad, f"P1 {mode}: slots {bad} differ from plain")
+    del cu, big, ohc0, slots
+    modes, shape = p1_times(torch)
+    lib_note = ("dotbf16: one batched bf16 torch.matmul, (B, T*WPS*8, 4096) "
+                "@ (B, 4096, 128); dot: B torch._int_mm calls, (T*WPS*8, "
+                "4096) @ (4096, 128) each; the sums over walks outside both")
     res = {"depparts": dict(
         modes["full"], max_abs_err=max(m["max_abs_err"]
                                        for m in modes.values()),
-        modes=modes, shape=[Bn, Tn, wps, big.shape[2]],
-        library_note=lib_note)}
+        modes=modes, shape=shape, library_note=lib_note)}
 
     a, b = P2.inputs(device=DEV)
     K_, reps, Tn2 = a.shape[1], 8, 64
@@ -964,7 +1016,7 @@ def phase_probes(torch):
              "--format=csv,noheader"], capture_output=True,
             text=True).stdout.strip()
         dts[name] = dict(
-            max_abs_err=abs_err(got, want), ms=ms,
+            max_abs_err=abs_err(torch, got, want), ms=ms,
             plain_ms=cuda_ms(torch, lambda: P2.int8_mxu_plain(
                 a, b, dtype=dt, reps=reps), 3),
             library_ms=lib_ms, **profiler_line(prof), host_ms=host_ms,
@@ -1189,6 +1241,10 @@ def main():
          library=os.path.relpath(so, HERE))
     if sys.argv[1:] == ["--expand"]:
         line("expand", card=card, **expand_times(torch, T, bench))
+        return
+    if sys.argv[1:] == ["--p1"]:
+        modes, shape = p1_times(torch)
+        line("p1", card=card, shape=shape, modes=modes)
         return
 
     # --- 3. kernels against their plain versions ------------------------------

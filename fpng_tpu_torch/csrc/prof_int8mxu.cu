@@ -60,6 +60,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace fpng {
 namespace {
@@ -164,83 +165,7 @@ int8mxu_stage_kernel(const int* __restrict__ a, const int* __restrict__ b,
   }
 }
 
-// --- shared memory, barriers, bulk copies ---------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spin until the phase of parity `parity` has completed; a stage that
-// never arrives traps (an error on the host) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 34)) __trap();  // ~10 s
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// --- wgmma -----------------------------------------------------------------
-
-// Descriptor of a no-swizzle K-major B tile at p: start address, leading
-// byte offset 128, stride byte offset 256 (each >> 4), layout type 0.
-__device__ __forceinline__ uint64_t b_desc(const void* p) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         (uint64_t)(128 >> 4) << 16 | (uint64_t)(256 >> 4) << 32;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator accesses across the async
-// products.
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+// --- wgmma (helpers in wgmma.cuh) ---------------------------------------
 
 #define FPNG_D64                                                          \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "    \
@@ -319,13 +244,14 @@ template <class Acc>
 __device__ __forceinline__ void group(Acc (&d)[64],
                                       const uint32_t (&x)[kSteps][4],
                                       const uint8_t* sb) {
-  fence_acc(d);
-  wg_fence();
+  wg::fence_regs(d);
+  wg::fence();
 #pragma unroll
-  for (int j = 0; j < kSteps; ++j) mma(d, x[j], b_desc(sb + j * kStepB));
-  wg_commit();
-  fence_acc(d);
-  wg_wait<1>();
+  for (int j = 0; j < kSteps; ++j)
+    mma(d, x[j], wg::desc(sb + j * kStepB, 128, 256));
+  wg::commit();
+  wg::fence_regs(d);
+  wg::wait<1>();
 }
 
 template <bool BF16>
@@ -354,15 +280,15 @@ int8mxu_wgmma_kernel(const uint8_t* __restrict__ scratch, int NKP, int reps,
                         (size_t)mt * NKP * kStepA;
     auto load = [&](int s) {
       uint64_t* bb = bar + s % kRing;
-      mbar_expect(bb, kStageB + kStageA);
-      bulk_load(sb + (s % kRing) * kStageB, gb + (size_t)s * kStageB, kStageB,
-                bb);
-      bulk_load(sa + (s % kRing) * kStageA, ga + (size_t)s * kStageA, kStageA,
-                bb);
+      wg::mbar_expect(bb, kStageB + kStageA);
+      wg::bulk_load(sb + (s % kRing) * kStageB, gb + (size_t)s * kStageB,
+                    kStageB, bb);
+      wg::bulk_load(sa + (s % kRing) * kStageA, ga + (size_t)s * kStageA,
+                    kStageA, bb);
     };
     if (tid == 0) {
-      for (int i = 0; i < kRing; ++i) mbar_init(bar + i, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int i = 0; i < kRing; ++i) wg::mbar_init(bar + i, 1);
+      wg::mbar_init_fence();
       for (int s = 0; s < min(kRing, nst); ++s) load(s);
     }
     __syncthreads();
@@ -370,7 +296,7 @@ int8mxu_wgmma_kernel(const uint8_t* __restrict__ scratch, int NKP, int reps,
     uint32_t x0[kSteps][4], x1[kSteps][4];
     for (int s = 0; s < nst; ++s) {
       const int buf = s % kRing;
-      mbar_wait(bar + buf, (s / kRing) & 1);
+      wg::mbar_wait(bar + buf, (s / kRing) & 1);
       const uint8_t* bs = sb + buf * kStageB;
 #pragma unroll
       for (int j = 0; j < kSteps; ++j)
@@ -396,8 +322,8 @@ int8mxu_wgmma_kernel(const uint8_t* __restrict__ scratch, int NKP, int reps,
         group(d, x1, bs);
       }
     }
-    wg_wait<0>();
-    fence_acc(d);
+    wg::wait<0>();
+    wg::fence_regs(d);
   }
 #pragma unroll
   for (int j = 0; j < 16; ++j) {

@@ -45,20 +45,23 @@ _SIGNATURES = {
     # metb, chk, stream
     "fpng_finalize8": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P, _P, _P, _P],
-    # meta, metb, B, N, n_slots, raster, stream
-    "fpng_scatter_packed16": [_P, _P, _I, _I, _I, _P, _P],
+    # meta, metb, B, S, NC, n_slots, raster, stream
+    "fpng_scatter_packed16": [_P, _P, _I, _I, _I, _I, _P, _P],
     # raster, B, h, w, c, rows, strip, bands, scratch, out, stream
     "fpng_expand": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # deltas, len_sym, len_extra, cand, tbl, B, HW, out, stream
     "fpng_demote": [_P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # cu, big, ohc0, B, T, WPS, M, src, prod, out, stream
-    "fpng_depparts": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    # cu, big, ohc0, B, T, WPS, M, src, prod, scratch, out, stream
+    "fpng_depparts": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    # B, WPS, src, prod -> scratch bytes (restype long long)
+    "fpng_depparts_scratch": [_I, _I, _I, _I],
     # a, b, K, reps, T, bf16, scratch, out, stream
     "fpng_int8mxu": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     # K, bf16 -> scratch bytes (restype long long)
     "fpng_int8mxu_scratch": [_I, _I],
 }
-_RESTYPES = {"fpng_int8mxu_scratch": ctypes.c_longlong}
+_RESTYPES = {"fpng_int8mxu_scratch": ctypes.c_longlong,
+             "fpng_depparts_scratch": ctypes.c_longlong}
 
 _lib = None
 

@@ -97,12 +97,12 @@ def scatter_packed16_plain(meta: torch.Tensor, metb: torch.Tensor,
     """Plain torch version of kernel B5 (same contract as
     scatter_packed16): two scatters into a zeroed raster whose two extra
     columns collect the records that deposit nothing."""
-    slot = meta.to(torch.int64)
-    v = metb.to(torch.int64) & MASK32
+    B = meta.shape[0]
+    slot = meta.reshape(B, -1).to(torch.int64)
+    v = metb.reshape(B, -1).to(torch.int64) & MASK32
     lo, hi = v & 0xFFFF, v >> 16
     ok = slot >= 0
-    out = torch.zeros((meta.shape[0], n_slots + 2), dtype=torch.int32,
-                      device=meta.device)
+    out = torch.zeros((B, n_slots + 2), dtype=torch.int32, device=meta.device)
     out.scatter_(1, torch.where(ok & (lo != 0) & (slot < n_slots), slot,
                                 n_slots), lo.to(torch.int32))
     out.scatter_(1, torch.where(ok & (hi != 0) & (slot + 1 < n_slots),
@@ -116,26 +116,33 @@ def scatter_packed16(meta: torch.Tensor, metb: torch.Tensor,
     (csrc/deposit.cu), which replaces fpng_tpu's scatter_packed16_tpu
     with its wide records.
 
-    meta (B, N) int32 slots; metb (B, N) int32 values, (0x100 | v1) |
-    (0x100 | v2) << 16 with 0 = gap.  The low half lands at `slot`, a
-    non-zero high half at slot + 1; halves outside [0, n_slots) are
-    dropped.  The slots that records fill must be distinct (the walk's
-    literals are).  Returns a (B, n_slots) int16 raster, zero where no
-    literal landed.  A CPU tensor takes scatter_packed16_plain; a CUDA
-    tensor launches the kernel or raises.
+    meta int32 slots and metb int32 values, (0x100 | v1) | (0x100 | v2)
+    << 16 with 0 = gap, both (B, S, NC) as the finalize writes them (step
+    major: a step's NC lanes contiguous, the kernel reads each lane's
+    records as a run) or (B, N), taken as one step of N lanes.  The low
+    half lands at `slot`, a non-zero high half at slot + 1; halves outside
+    [0, n_slots) are dropped.  The slots that records fill must be
+    distinct (the walk's literals are).  Returns a (B, n_slots) int16
+    raster, zero where no literal landed.  A CPU tensor takes
+    scatter_packed16_plain; a CUDA tensor launches the kernel (which
+    zero-fills the raster first) or raises.
     """
     if meta.device.type == "cpu":
         return scatter_packed16_plain(meta, metb, n_slots)
     K.require_cuda("scatter_packed16", meta, metb)
-    if meta.dim() != 2 or metb.shape != meta.shape:
-        raise ValueError("scatter_packed16: meta and metb must be (B, N)")
-    B, N = meta.shape
-    if N >= 1 << 31 or n_slots >= 1 << 31:
-        raise ValueError("scatter_packed16: sizes past int32")
-    raster = torch.zeros((B, n_slots), dtype=torch.int16, device=meta.device)
+    if meta.dim() not in (2, 3) or metb.shape != meta.shape:
+        raise ValueError("scatter_packed16: meta and metb must be (B, S, NC) "
+                         "or (B, N), of one shape")
+    B = meta.shape[0]
+    S, NC = meta.shape[1:] if meta.dim() == 3 else (1, meta.shape[1])
+    if max(S, NC, n_slots) >= 1 << 31 or B > 65535:
+        raise ValueError("scatter_packed16: sizes past int32, or more than "
+                         "65535 images")
+    raster = torch.empty((B, n_slots), dtype=torch.int16, device=meta.device)
     K.check(K.lib().fpng_scatter_packed16(
-        meta.data_ptr(), metb.data_ptr(), B, N, n_slots, raster.data_ptr(),
-        K.stream_ptr(meta.device)), "fpng_scatter_packed16")
+        meta.data_ptr(), metb.data_ptr(), B, S, NC, n_slots,
+        raster.data_ptr(), K.stream_ptr(meta.device)),
+        "fpng_scatter_packed16")
     scatter_packed16.launches += 1
     return raster
 

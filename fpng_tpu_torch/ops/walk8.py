@@ -511,7 +511,6 @@ def finish_decode(finalize, records, e_fin, out0, zlib_len, *, k8: int,
     finalize_records): deposit records and checks over the first k8 rows,
     the ok flags, then B5 and B6.  Returns (imgs (B, h, w, c) uint8, ok
     (B,) bool)."""
-    B = records[0].shape[0]
     bpl = w * c
     meta, metb, chk = finalize(*records, e_fin, out0, k8=k8, h=h, bpl=bpl,
                                c=c)
@@ -519,6 +518,5 @@ def finish_decode(finalize, records, e_fin, out0, zlib_len, *, k8: int,
     eob_end = chk[:, 1]
     ok = (chk[:, 0] == 0) & (eob_end != INF) & (eob_end <= chk[:, 2]) & \
         (((eob_end + 7) >> 3) == zlib_len.to(torch.int64) - 4)
-    raster = scatter_packed16(meta.reshape(B, -1), metb.reshape(B, -1),
-                              h * bpl)
+    raster = scatter_packed16(meta, metb, h * bpl)
     return expand(raster, h=h, w=w, c=c), ok

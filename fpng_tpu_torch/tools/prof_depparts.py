@@ -16,6 +16,7 @@ dotbf16, none) at the probe's size and prints ms per call.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -26,6 +27,7 @@ from .. import kernels as K
 B, T, WPS = 32, 18, 4  # batches, grid steps, walks per step
 GROUP = 4096           # units per walk: 32 rows of 128 of cu
 M = 136                # rows of big (the TPU's wrows(17) * Pp(8))
+MAX_WPS = 32           # walks a step the kernel takes
 MODES = ("full", "ohc", "dot", "dotbf16", "none")  # the probe's "all"
 # mode -> (source of the one-hot: 0 cu, 1 ohc0; product: 0 none, 1 int8,
 # 2 bf16); fulli8cmp and fullbf16 differ from full only in TPU operand types
@@ -89,6 +91,13 @@ def depparts(cu: torch.Tensor, big: torch.Tensor, ohc0: torch.Tensor,
         raise ValueError(f"depparts: mode must be one of {ALL_MODES}")
     if cu.device.type == "cpu":
         return depparts_plain(cu, big, ohc0, mode)
+    return _depparts_slots(cu, big, ohc0, mode)[:, -1]
+
+
+def _depparts_slots(cu, big, ohc0, mode: str) -> torch.Tensor:
+    """One call of csrc/prof_depparts.cu: every step's output, (B, T, 8,
+    128) int32, slot t holding step t's (the product modes first stage
+    their operands into scratch, then run the products)."""
     K.require_cuda("depparts", cu)
     Bn, Tn, R, _ = cu.shape
     wps = R // 32
@@ -97,19 +106,31 @@ def depparts(cu: torch.Tensor, big: torch.Tensor, ohc0: torch.Tensor,
         if t.device != dev or t.dtype != torch.int8 or not t.is_contiguous():
             raise ValueError("depparts: big and ohc0 must be contiguous int8 "
                              "tensors on cu's device")
-    if cu.shape != (Bn, Tn, 32 * wps, 128) or wps < 1 or \
+    if cu.shape != (Bn, Tn, 32 * wps, 128) or not 1 <= wps <= MAX_WPS or \
             big.shape[:2] != (Bn, wps) or big.shape[2] < 8 or \
-            big.shape[3] != GROUP or ohc0.shape != (Bn, GROUP, 128):
-        raise ValueError("depparts: cu (B, T, WPS*32, 128), big (B, WPS, M, "
-                         "4096) with M >= 8, ohc0 (B, 4096, 128)")
+            big.shape[3] != GROUP or ohc0.shape != (Bn, GROUP, 128) or \
+            not 1 <= Bn <= 65535:
+        raise ValueError(f"depparts: cu (B, T, WPS*32, 128), big (B, WPS, M, "
+                         f"4096) with M >= 8, ohc0 (B, 4096, 128), "
+                         f"B <= 65535, 1 <= WPS <= {MAX_WPS}")
+    if any(t.data_ptr() % 16 for t in (cu, big, ohc0)):
+        raise ValueError("depparts: operands must be 16-byte aligned")
     src, prod = _ROUTES[mode]
+    scratch = torch.empty(_scratch_bytes(Bn, wps, src, prod),
+                          dtype=torch.uint8, device=dev)
     out = torch.empty((Bn, Tn, 8, 128), dtype=torch.int32, device=dev)
     K.check(K.lib().fpng_depparts(
         cu.data_ptr(), big.data_ptr(), ohc0.data_ptr(), Bn, Tn, wps,
-        big.shape[2], src, prod, out.data_ptr(), K.stream_ptr(dev)),
-        "fpng_depparts")
+        big.shape[2], src, prod, scratch.data_ptr(), out.data_ptr(),
+        K.stream_ptr(dev)), "fpng_depparts")
     depparts.launches += 1
-    return out[:, Tn - 1]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(b: int, wps: int, src: int, prod: int) -> int:
+    """The kernel's scratch size, from the library (asked once a shape)."""
+    return K.lib().fpng_depparts_scratch(b, wps, src, prod)
 
 
 depparts.launches = 0

@@ -585,3 +585,55 @@ def test_int8_mxu_every_slot_matches_plain(dtype, K, reps):
         assert all(torch.equal(s.cpu(), want) for s in slots), Tn
         assert torch.equal(TP2.int8_mxu(ac, bc, dtype=dtype, reps=reps,
                                         T=Tn).cpu(), want)
+
+
+@pytest.mark.parametrize("mode", TP1.ALL_MODES)
+@pytest.mark.parametrize("m", [8, 12])
+def test_depparts_every_slot_matches_plain(mode, m):
+    """P1 at T in {1, 3, 18} and WPS in {1, 4}: every one of the T output
+    slots equals the plain version on that step (so no step's products
+    can be skipped unseen), cu with negative slot words; the scratch is
+    the staged layout's size."""
+    for Tn in (1, 3, 18):
+        for wps in (1, 4):
+            cu, big, ohc0 = TP1.inputs(2, Tn, wps, m, seed=Tn + wps,
+                                       device="cpu")
+            cu[:, :, ::7] = -cu[:, :, ::7] - 1
+            n0 = TP1.depparts.launches
+            slots = TP1._depparts_slots(cu.cuda(), big.cuda(), ohc0.cuda(),
+                                        mode)
+            torch.cuda.synchronize()
+            assert TP1.depparts.launches == n0 + 1
+            assert slots.shape == (2, Tn, 8, 128)
+            for t in range(Tn):
+                want = TP1.depparts_plain(cu[:, t:t + 1], big, ohc0, mode)
+                assert torch.equal(slots[:, t].cpu(), want), (Tn, wps, t)
+            src, prod = TP1._ROUTES[mode]
+            nks = 4096 // (16 if prod == 2 else 32)
+            assert TP1._scratch_bytes(2, wps, src, prod) == (
+                0 if prod == 0 else 2 * nks * 1024 * (1 + 4 * src))
+
+
+def test_scatter_packed16_tiles_on_real_records():
+    """B5 on real walk8 and PK=1 records from the finalize at k8 in {1, 17,
+    96, 536} (up to each walk's rows), with a lane count that is not a
+    multiple of the kernel's 64-lane tile: in the (B, k8, NC) form and
+    flattened to (B, N), the raster equals the plain version's."""
+    for name, fn, full, (h, w, c) in _finalize_cases():
+        NC = full[0].shape[2]
+        cut = NC - 5 if NC % 32 == 0 else NC
+        args = [a[..., :cut].contiguous() for a in full]
+        n_slots = h * w * c
+        for k8 in (1, 17, 96, 536):
+            if k8 > args[0].shape[1]:
+                continue
+            meta, metb, _ = fn(*args, k8=k8, h=h, bpl=w * c, c=c)
+            want = scatter_packed16_plain(meta.cpu(), metb.cpu(), n_slots)
+            B = meta.shape[0]
+            for m_, v_ in ((meta, metb),
+                           (meta.reshape(B, -1), metb.reshape(B, -1))):
+                n0 = scatter_packed16.launches
+                got = scatter_packed16(m_, v_, n_slots)
+                torch.cuda.synchronize()
+                assert scatter_packed16.launches == n0 + 1
+                assert torch.equal(got.cpu(), want), (name, k8, m_.dim())

@@ -262,3 +262,263 @@ def _p2_scratch_bytes(K, bf16):
     """fpng_int8mxu_scratch(K, bf16)."""
     _, ab, nkp = _p2_geometry(K, bf16)
     return nkp * STEP_B + 2 * nkp * 128 * ab
+
+
+# ---------------------------------------------------------------------------
+# P1's operand maps (csrc/prof_depparts.cu): a numpy twin
+# ---------------------------------------------------------------------------
+
+KKB, STEPB1, FRAGA, CHUNK_STEPS = 32, 1024, 2048, 8  # kKB, kStepB, ...
+
+
+def _p1_geometry(bf16):
+    el = 2 if bf16 else 1
+    return el, KKB // el, 4096 // (KKB // el)  # el, kk, nks
+
+
+def _to_bytes(vals, bf16):
+    """int8 values as the kernel stores them: bytes, or bf16 bit patterns
+    (little-endian byte pairs)."""
+    if bf16:
+        return _bf16_bits(vals).view(np.uint8).reshape(*vals.shape[:-1], -1)
+    return vals.astype(np.int8).view(np.uint8)
+
+
+def _from_bytes(byts, bf16):
+    """The inverse, as float64 values (bf16 through torch's bfloat16)."""
+    if bf16:
+        bits = np.ascontiguousarray(byts).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).double().numpy()
+    return np.ascontiguousarray(byts).view(np.int8).astype(np.float64)
+
+
+def _p1_stage_b(big, bf16):
+    """depparts_stage_b_kernel: the B scratch, piece by piece (16 bytes:
+    row r, half kh of k-step ks of walk group wg, walk 4 wg + n8)."""
+    Bn, wps = big.shape[:2]
+    el, kk, nks = _p1_geometry(bf16)
+    NG = -(-wps // 4)
+    p = np.arange(Bn * nks * NG * 64)
+    r, kh, n8, rest = p % 8, p // 8 % 2, p // 16 % 4, p // 64
+    wg, ks, b = rest % NG, rest // NG % nks, rest // NG // nks
+    walk = 4 * wg + n8
+    g = ks[:, None] * kk + kh[:, None] * 16 // el + np.arange(16 // el)
+    vals = big[b[:, None], np.minimum(walk, wps - 1)[:, None], r[:, None], g]
+    vals = np.where((walk < wps)[:, None], vals, 0)
+    return _to_bytes(vals, bf16).reshape(-1), NG
+
+
+def _p1_stage_a(ohc0, bf16):
+    """depparts_stage_a_kernel: ohc0^T in wgmma's register-A fragments,
+    computed as each 64-unit block computes them from its tile."""
+    Bn = ohc0.shape[0]
+    el, kk, nks = _p1_geometry(bf16)
+    out = np.zeros(Bn * 2 * nks * FRAGA, np.uint8)
+    f = np.arange(64 // kk * 256)
+    ft, mt, ksl = f % 128, f // 128 % 2, f // 256
+    lane = ft & 31
+    g, q = lane >> 2, lane & 3
+    row0 = mt * 64 + (ft >> 5) * 16 + g
+    for b in range(Bn):
+        for u0 in range(0, 4096, 64):
+            tile = ohc0[b, u0:u0 + 64]  # [unit][column]
+            regs = []
+            for i in range(4):
+                j = row0 + 8 * (i & 1)
+                if bf16:
+                    k = ksl * kk + 8 * (i >> 1) + 2 * q
+                    v = np.stack([tile[k, j], tile[k + 1, j]], axis=1)
+                else:
+                    k = ksl * kk + 16 * (i >> 1) + 4 * q
+                    v = np.stack([tile[k + e, j] for e in range(4)], axis=1)
+                regs.append(_to_bytes(v, bf16))
+            ks = u0 // kk + ksl
+            at = (((b * 2 + mt) * nks + ks) * FRAGA + ft * 16)[:, None] + \
+                np.arange(16)
+            out[at] = np.concatenate(regs, axis=1)
+    return out
+
+
+def _p1_read_a_frags(sa, b, mt, bf16):
+    """A (64, 4096) of half mt as the register fragments hold it: thread
+    tid (warp w, g, q), register i = word i of its 16 bytes, row 16w + g +
+    8 (i % 2), units 16 (i // 2) + 4q + e (int8) or 8 (i // 2) + 2q + e
+    (bf16) of the k-step."""
+    el, kk, nks = _p1_geometry(bf16)
+    A = np.zeros((64, 4096))
+    tid = np.arange(128)
+    w, g, q = tid >> 5, (tid & 31) >> 2, tid & 3
+    for ks in range(nks):
+        chunk = sa[((b * 2 + mt) * nks + ks) * FRAGA + tid[:, None] * 16 +
+                   np.arange(16)]
+        for i in range(4):
+            vals = _from_bytes(chunk[:, 4 * i:4 * i + 4], bf16)
+            row = 16 * w + g + 8 * (i % 2)
+            base = 16 * (i // 2) + 4 * q if not bf16 else 8 * (i // 2) + 2 * q
+            for e in range(vals.shape[1]):
+                A[row, ks * kk + base + e] = vals[:, e]
+    return A
+
+
+def _p1_read_desc(buf, start, bf16, n_rows, lbo=128, sbo=256):
+    """One k-step (32 bytes of K) of an operand with n_rows rows, as a
+    no-swizzle K-major descriptor reads it, (K, n_rows): element (n, kb)
+    at start + (n / 8) * sbo + (kb / 16) * lbo + (n % 8) * 16 + kb % 16."""
+    n = np.arange(n_rows)[:, None]
+    kb = np.arange(32)[None]
+    byts = buf[start + (n >> 3) * sbo + (kb >> 4) * lbo + (n & 7) * 16 +
+               (kb & 15)]
+    return _from_bytes(byts, bf16).T  # (k, n)
+
+
+def _onehot_at(j, u, bf16):
+    """onehot_at: the byte of one-hot element (column j, unit u) in a
+    chunk tile."""
+    kb = u * (2 if bf16 else 1)
+    return (kb >> 5) * 4096 + (j >> 6) * 2048 + ((j >> 3) & 7) * 256 + \
+        ((kb >> 4) & 1) * 128 + (j & 7) * 16 + (kb & 15)
+
+
+def _acc_map(n_cols):
+    """The m64nN accumulator fragments of a warpgroup: (thread, register)
+    -> (row, column): d[4 jb + e] of thread (w, g, q) is row 16w + g
+    (+ 8 for e >= 2), column 8 jb + 2q + (e & 1)."""
+    tid = np.arange(128)[:, None]
+    reg = np.arange(n_cols // 2)[None]
+    jb, e = reg // 4, reg % 4
+    w, g, q = tid >> 5, (tid & 31) >> 2, tid & 3
+    return 16 * w + g + 8 * (e >> 1), 8 * jb + 2 * q + (e & 1)
+
+
+def _p1_epilogue(D, half, fold):
+    """The epilogue of one 64-row half: each thread's registers (the four
+    walk blocks summed when fold) to (big's row i, output column j), as
+    the kernels store them; returns the (8, 128) slab it writes and the
+    count of writes to each word."""
+    n_cols = D.shape[1]
+    row, col = _acc_map(n_cols)
+    d = D[row, col]  # (128 threads, n_cols / 2 registers)
+    if fold:
+        d = d[:, 0:4] + d[:, 4:8] + d[:, 8:12] + d[:, 12:16]
+    tid = np.arange(128)[:, None]
+    e = np.arange(4)[None]
+    g, q = (tid & 31) >> 2, tid & 3
+    j0 = half * 64 + (tid >> 5) * 16 + g
+    i, j = 2 * q + (e & 1), j0 + 8 * (e >> 1)
+    out = np.zeros((8, 128))
+    hits = np.zeros((8, 128), np.int64)
+    np.add.at(out, (i, j), d[:, :4])
+    np.add.at(hits, (i, j), 1)
+    return out, hits
+
+
+def _p1_twin(cu, big, ohc0, mode):
+    """The (B, T, 8, 128) output of csrc/prof_depparts.cu through the
+    twin's maps."""
+    src, prod = TP1._ROUTES[mode]
+    Bn, Tn, R, _ = cu.shape
+    wps = R // 32
+    out = np.zeros((Bn, Tn, 8, 128), np.int64)
+    if prod == 0:  # depparts_noprod_kernel
+        tid = np.arange(256)[:, None]
+        e = np.arange(4)[None]
+        for b in range(Bn):
+            for t in range(Tn):
+                if src == 1:
+                    res = wps * ohc0[b].reshape(-1)[tid * 4 + e]
+                else:
+                    res = np.zeros((256, 4), np.int64)
+                    stride = 144
+                    for k in range(wps):
+                        tile = np.zeros(128 * stride, np.int64)
+                        col = TP1.slot_columns(torch.from_numpy(
+                            cu[b, t, 32 * k])).numpy()  # chunk c = 0
+                        u = np.nonzero(col >= 0)[0]
+                        tile[col[u] * stride + u] = 1
+                        res += tile[(4 * (tid & 31) + e) * stride +
+                                    (tid >> 5)]
+                out[b, t] = res.reshape(8, 128)
+        return out
+    bf16 = prod == 2
+    el, kk, nks = _p1_geometry(bf16)
+    sb, NG = _p1_stage_b(big, bf16)
+    if src == 1:
+        sa = _p1_stage_a(ohc0, bf16)
+        for b in range(Bn):
+            for mt in range(2):
+                A = _p1_read_a_frags(sa, b, mt, bf16)
+                D = np.zeros((64, 32))
+                for ks in range(nks):
+                    for wg in range(NG):
+                        Bk = _p1_read_desc(
+                            sb, ((b * nks + ks) * NG + wg) * STEPB1, bf16, 32)
+                        D += A[:, ks * kk:(ks + 1) * kk] @ Bk
+                slab, hits = _p1_epilogue(D, mt, fold=True)
+                assert (hits[:, mt * 64:(mt + 1) * 64] == 1).all()
+                for t in range(Tn):  # every step issues the same products
+                    out[b, t, :, mt * 64:(mt + 1) * 64] = \
+                        slab[:, mt * 64:(mt + 1) * 64]
+        return out
+    kc = CHUNK_STEPS * kk
+    tid = np.arange(kc)
+    for b in range(Bn):
+        for t in range(Tn):
+            cub = cu[b, t].reshape(-1)
+            tiles = np.zeros((2, 128 * 1024), np.uint8)
+            old = [np.full(kc, -1), np.full(kc, -1)]
+            D = np.zeros((2, 64, 8))
+            for c in range(wps * (4096 // kc)):
+                p = c & 1
+                col = TP1.slot_columns(torch.from_numpy(
+                    cub[c * kc:(c + 1) * kc].copy())).numpy()
+                at = np.where(col >= 0, _onehot_at(col, tid, bf16), -1)
+                prev = old[p]
+                for a, one in ((prev, 0), (at, 1)):  # clear, then set
+                    a = a[a >= 0]
+                    tiles[p, a] = 0 if one == 0 else (0x80 if bf16 else 1)
+                    if bf16:
+                        tiles[p, a + 1] = 0 if one == 0 else 0x3F
+                old[p] = at
+                k = c // (4096 // kc)
+                bp = np.zeros(2048, np.uint8)
+                for pc in range(128):
+                    ks = (c % (4096 // kc)) * CHUNK_STEPS + pc // 16
+                    s0 = ((b * nks + ks) * NG + k // 4) * STEPB1 + \
+                        (k % 4) * 256 + (pc % 16) * 16
+                    bp[pc * 16:pc * 16 + 16] = sb[s0:s0 + 16]
+                for half in range(2):
+                    for ks in range(CHUNK_STEPS):
+                        Ak = _p1_read_desc(tiles[p], ks * 4096 +
+                                             half * 2048, bf16, 64).T
+                        Bk = _p1_read_desc(bp, ks * 256, bf16, 8)
+                        D[half] += Ak @ Bk
+            for half in range(2):
+                slab, hits = _p1_epilogue(D[half], half, fold=False)
+                assert (hits[:, half * 64:(half + 1) * 64] == 1).all()
+                out[b, t, :, half * 64:(half + 1) * 64] = \
+                    slab[:, half * 64:(half + 1) * 64]
+    return out
+
+
+@pytest.mark.parametrize("wps", [1, 5])
+@pytest.mark.parametrize("mode", TP1.ALL_MODES)
+def test_depparts_operand_maps_give_the_product(mode, wps):
+    """The staged B (big's rows K-major, four walks side by side in N),
+    the ohc0 modes' A fragments, the cu modes' one-hot chunks (set, then
+    cleared two chunks on), read back through the descriptor, fragment
+    and accumulator maps, with the walk fold in N: every step's slot
+    equals depparts_plain on that step, for every mode, at B = T = 2, M =
+    9, with negative and high-bit slot words in cu."""
+    rng = np.random.default_rng(11 * wps + len(mode))
+    cu = rng.integers(0, 128, (2, 2, 32 * wps, 128)).astype(np.int32)
+    cu[:, :, ::5] = rng.integers(-(1 << 31), 1 << 31, cu[:, :, ::5].shape,
+                                 dtype=np.int64).astype(np.int32)
+    big = rng.integers(-128, 128, (2, wps, 9, 4096)).astype(np.int8)
+    ohc0 = rng.integers(0, 2, (2, 4096, 128)).astype(np.int8)
+    got = _p1_twin(cu, big, ohc0, mode)
+    for t in range(2):
+        want = TP1.depparts_plain(torch.from_numpy(cu[:, t:t + 1]),
+                                  torch.from_numpy(big),
+                                  torch.from_numpy(ohc0), mode)
+        assert np.array_equal(got[:, t], want.numpy()), t
+
