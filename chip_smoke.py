@@ -11,9 +11,9 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      decode's shapes; B3-B6 on the decode of the headline corpus's own
      streams; B7 on the 32 bpp 1-pass corpus's cost-check inputs; B8 and
      B9 on the decode of the 24 bpp 2-pass corpus, which overflows
-     walk8), with CUDA-event times and a bytes/operations bound (B4, B5
-     and B9 also with the profiler's kernel time; B5 on the finalize's
-     (B, k8, NC) records and flattened to (B, N)); B2 is
+     walk8), with CUDA-event times and a bytes/operations bound (B1, B4,
+     B5, B7 and B9 also with the profiler's kernel time; B5 on the
+     finalize's (B, k8, NC) records and flattened to (B, N)); B2 is
      the whole IDAT CRC, with the device activities of one
      launch_assemble counted by torch.profiler; then B3 once more on the
      32 bpp 1-pass corpus, whose overflowing images it stops at their
@@ -23,8 +23,11 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      points) at the headline size, 128 x 256 x 256 x 3: the decode takes
      the walk8 path, every file is checked with zlib and the port's
      golden, three decodes with the decoder's stage spans on give the
-     stage split, and one profiled decode gives the device's idle share;
-  5. does the same at 2 x 2160 x 3840 x 3;
+     stage split, one profiled decode gives the device's idle share, and
+     one profiled encode (encode_profile) where the encode's device time
+     goes;
+  5. does the same at 2 x 2160 x 3840 x 3 (B1 held against its plain
+     version on the 4K streams);
   modes: drives 24 bpp 2-pass, 32 bpp 1-pass and 32 bpp 2-pass at
      128 x 256 x 256 x c the same way (rates best of three, zlib on every
      file, golden on the distinct ones, the first 8 against the CPU run);
@@ -34,7 +37,8 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      slots, the same 32 images on the chunked decode (B10) and the
      overflow stream through chunked -> host;
   large_raster_2g: encodes one 1 x 6144 x 7680 x 3 raster (141.6 M bytes,
-     past 2^27) and decodes it on the chunked decode;
+     past 2^27) and decodes it on the chunked decode (B1 held against its
+     plain version on its stream);
   7. decodes corrupted streams against golden's statuses;
   probes: holds the probe kernels P1 (tools/prof_depparts, all seven
      modes) and P2 (tools/prof_int8mxu, int8 and bf16), each in every one
@@ -59,6 +63,16 @@ on the walk8 decode rasters of the headline and 4K corpora, and prints no
 ok line.  It calls only functions whose contracts checkouts since B5 took
 (B, S, NC) records share, so a copy of this file at the root of such a
 checkout times that checkout's B6 on the same rasters.
+
+    python3 chip_smoke.py --enc
+
+times B1 alone at the headline, 4K and large_raster_2g shapes and B7 on
+the 32 bpp 1-pass cost-check inputs (CUDA events, the profiler's kernel
+time, the host's enqueue time, bounds, plain versions), each held against
+its plain version, and prints no ok line.  It calls only
+encode_bits_fused, encode_bits_plain, demote_mask, demote_mask_plain,
+build_desc and tokens, so a copy of this file at the root of any checkout
+since B7 was ported times that checkout's B1 and B7.
 
     python3 chip_smoke.py --p1
 
@@ -158,11 +172,10 @@ def cuda_ms(torch, fn, reps):
 
 def profiled_ms(torch, fn, reps=20):
     """(ms, {kernel: [launches recorded, ms a launch]}): the device time of
-    one call of fn(), which launches each of its kernels once, by
-    torch.profiler over reps calls after a warm-up: the sum over kernels
-    of each one's mean recorded duration (the trace may miss some
-    launches; the CUDA-event time of cuda_ms also holds launch gaps and
-    host work)."""
+    one call of fn() by torch.profiler over reps calls after a warm-up:
+    the sum over kernels of each one's mean recorded duration, times the
+    launches it makes a call (the trace may miss some launches; the
+    CUDA-event time of cuda_ms also holds launch gaps and host work)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -180,7 +193,10 @@ def profiled_ms(torch, fn, reps=20):
             per[k] = (n + 1, t + (e.time_range.end - e.time_range.start)
                       / 1e3)
     per = {k: [n, t / n] for k, (n, t) in per.items()}
-    return sum(t for _, t in per.values()), per
+    # a name launched m times a call is recorded about m times as often as
+    # the call's rarest one (a memset and a fill kernel share one name)
+    n_min = min((n for n, _ in per.values()), default=1)
+    return sum(round(n / n_min) * t for n, t in per.values()), per
 
 
 def bound(nbytes, ops, ops_s=OPS_S):
@@ -211,13 +227,139 @@ def is_stored(png):
     return (png[58 + 2] & 6) == 0
 
 
+def host_ms(torch, fn, calls=10):
+    """The host's time to enqueue one call of fn(), nothing waited for."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return out
+
+
+def b1_inputs(torch, imgs):
+    """B1's arguments on the encode of a (B, H, W, c) batch with the 1-pass
+    tables: (desc, tbl, base_bits, num_words)."""
+    from fpng_tpu_torch.models.encoder import _budget, _num_words, build_desc
+    from fpng_tpu_torch.tables import one_pass_state
+
+    B, H, W_, Cc = imgs.shape
+    st = one_pass_state(Cc, DEV)
+    desc, tbl, *_ = build_desc(
+        torch.from_numpy(imgs).to(DEV), st.codes.expand(B, -1),
+        st.sizes.expand(B, -1),
+        torch.full((B,), st.acc, dtype=torch.int32, device=DEV),
+        torch.full((B,), st.nacc, dtype=torch.int32, device=DEV),
+        num_chans=Cc, cost_check=False)
+    base = torch.full((B,), len(st.prefix) * 8, dtype=torch.int32,
+                      device=DEV)
+    return desc, tbl, base, _num_words(_budget(H, W_, Cc))
+
+
+def b1_checked(torch, args, what):
+    """B1 against encode_bits_plain on args: every word, total_bits and
+    last_tok.  The plain version's int64 temporaries go back to the card
+    (empty_cache), so that the phases after it allocate as they would
+    without the check."""
+    from fpng_tpu_torch.ops.encfuse import (encode_bits_fused,
+                                            encode_bits_plain)
+
+    got = encode_bits_fused(*args)
+    want = encode_bits_plain(*args)
+    for g, w_, name in zip(got, want, ("words", "total_bits", "last_tok")):
+        check(torch.equal(g, w_), f"B1 {name} differ from plain ({what})")
+    del want
+    torch.cuda.empty_cache()
+    return got
+
+
+def b1_times(torch, args, reps=20, plain_reps=5):
+    """B1's CUDA-event, profiler and enqueue times on args, its plain
+    version's time, and its bound: the desc read, the table read and the
+    words written once; ~20 ops a unit (lookup, scan, shifts, deposit)."""
+    from fpng_tpu_torch.ops.encfuse import (encode_bits_fused,
+                                            encode_bits_plain)
+
+    desc, tbl, _, nw = args
+    B, N = desc.shape
+    bms, by = bound(4 * B * N + 4 * tbl.numel() + 4 * B * nw, 20 * B * N)
+    return dict(
+        ms=cuda_ms(torch, lambda: encode_bits_fused(*args), reps),
+        **profiler_line(profiled_ms(torch, lambda: encode_bits_fused(*args),
+                                    reps)),
+        host_ms=host_ms(torch, lambda: encode_bits_fused(*args)),
+        plain_ms=cuda_ms(torch, lambda: encode_bits_plain(*args),
+                         plain_reps),
+        bound_ms=bms, bound_by=by, shape=[B, N], num_words=nw)
+
+
+def b7_inputs(torch, imgs):
+    """B7's arguments on the cost check of a 32 bpp 1-pass batch (the
+    1-pass tables)."""
+    from fpng_tpu_torch.models.encoder import tokens
+    from fpng_tpu_torch.tables import one_pass_state
+
+    B = imgs.shape[0]
+    st = one_pass_state(imgs.shape[3], DEV)
+    deltas, _, mstart, mlen, _, ls, le = tokens(
+        torch.from_numpy(imgs).to(DEV), imgs.shape[3])
+    return (deltas, ls, le, mstart & (mlen == 1),
+            st.tbl.expand(B, 8, 128).contiguous())
+
+
+def b7_times(torch, args):
+    """B7 against demote_mask_plain on args, with its CUDA-event, profiler
+    and enqueue times and its bound: cand read and the mask written, a
+    byte a pixel; the 4 delta bytes, len_sym and len_extra read per
+    candidate; the 288 sizes per image; ~12 ops a candidate, 2 a pixel."""
+    from fpng_tpu_torch.ops.encfuse import demote_mask, demote_mask_plain
+
+    got, want = demote_mask(*args), demote_mask_plain(*args)
+    check(torch.equal(got, want), "B7 mask differs from plain")
+    B, H, W_, Cc = args[0].shape
+    n_px, n_cand = B * H * W_, int(args[3].sum())
+    check(n_cand > 0 and bool(got.any()), "the corpus has no demotion")
+    bms, by = bound(2 * n_px + 12 * n_cand + 4 * 288 * B,
+                    12 * n_cand + 2 * n_px)
+    return dict(
+        max_abs_err=int((got.to(torch.int32) - want.to(torch.int32))
+                        .abs().max()),
+        ms=cuda_ms(torch, lambda: demote_mask(*args), 20),
+        **profiler_line(profiled_ms(torch, lambda: demote_mask(*args))),
+        host_ms=host_ms(torch, lambda: demote_mask(*args)),
+        plain_ms=cuda_ms(torch, lambda: demote_mask_plain(*args), 5),
+        bound_ms=bms, bound_by=by, shape=[B, H, W_, Cc], candidates=n_cand,
+        demoted=int(got.sum()))
+
+
+def enc_times(torch, bench):
+    """B1 at the headline, 4K and large_raster_2g shapes and B7 on the 32
+    bpp 1-pass cost-check inputs, each held against its plain version,
+    with CUDA-event, profiler and enqueue times, bounds and plain times.
+    It calls only encode_bits_fused, encode_bits_plain, demote_mask,
+    demote_mask_plain, build_desc and tokens, whose contracts every
+    checkout since B7 was ported shares."""
+    out = {}
+    for name, imgs, reps, plain_reps in (
+            ("headline", bench.make_corpus("real3"), 20, 5),
+            ("4k", bench.make_corpus_4k(), 20, 3),
+            ("2g", make_large_raster(), 10, 1)):
+        args = b1_inputs(torch, imgs)
+        b1_checked(torch, args, name)
+        out[f"b1_{name}"] = b1_times(torch, args, reps, plain_reps)
+        del args
+        torch.cuda.empty_cache()
+    out["b7"] = b7_times(torch, b7_inputs(torch, bench.make_corpus("real4")))
+    return out
+
+
 def phase_kernels(torch, imgs):
     """Each kernel against its plain version at the main path's shapes."""
     from torch.profiler import ProfilerActivity, profile
 
     import fpng_tpu_torch as T
-    from fpng_tpu_torch.models.encoder import (_budget, _num_words, build_desc,
-                                               encode_kernel, launch_assemble)
+    from fpng_tpu_torch.models.encoder import encode_kernel, launch_assemble
     from fpng_tpu_torch.ops import walk8 as W
     from fpng_tpu_torch.ops.assemble import (idat_crc_words,
                                              idat_crc_words_plain,
@@ -236,16 +378,8 @@ def phase_kernels(torch, imgs):
     dev = torch.device(DEV)
     B, H, W_, Cc = imgs.shape
     st = one_pass_state(Cc, dev)
-    desc, tbl, *_ = build_desc(
-        torch.from_numpy(imgs).to(dev), st.codes.expand(B, -1),
-        st.sizes.expand(B, -1),
-        torch.full((B,), st.acc, dtype=torch.int32, device=dev),
-        torch.full((B,), st.nacc, dtype=torch.int32, device=dev),
-        num_chans=Cc, cost_check=False)
-    base = torch.full((B,), len(st.prefix) * 8, dtype=torch.int32,
-                      device=dev)
-    budget = _budget(H, W_, Cc)
-    nw = _num_words(budget)
+    b1_args = b1_inputs(torch, imgs)
+    _, _, base, nw = b1_args
     res = {}
 
     def err(a, b):
@@ -254,21 +388,14 @@ def phase_kernels(torch, imgs):
     def masked_err(a, b):
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
-    # B1 against the XLA-path chain, on every word
-    got = encode_bits_fused(desc, tbl, base, nw)
-    want = encode_bits_plain(desc, tbl, base, nw)
-    for g, w_, what in zip(got, want, ("words", "total_bits", "last_tok")):
-        check(torch.equal(g, w_), f"B1 {what} differ from the plain chain")
-    N = desc.shape[1]
-    res["encode_bits_fused"] = dict(
-        max_abs_err=err(got[0], want[0]),
-        ms=cuda_ms(torch, lambda: encode_bits_fused(desc, tbl, base, nw), 20),
-        plain_ms=cuda_ms(torch, lambda: encode_bits_plain(
-            desc, tbl, base, nw), 5),
-        # desc read, table read, words written; ~20 ops a unit (lookup,
-        # scan, shifts, deposit)
-        bound=bound(4 * B * N + 4 * tbl.numel() + 4 * B * nw, 20 * B * N),
-        shape=[B, N], num_words=nw)
+    # B1 against the XLA-path chain, on every word, one launch a call
+    n0 = encode_bits_fused.launches
+    got = b1_checked(torch, b1_args, "headline")
+    check(encode_bits_fused.launches == n0 + 1, "B1 is not one launch")
+    want = encode_bits_plain(*b1_args)
+    res["encode_bits_fused"] = dict(max_abs_err=err(got[0], want[0]),
+                                    **b1_times(torch, b1_args))
+    del want
 
     # B2, the whole IDAT CRC, on the corpus words, masked to each image's
     # payload, against idat_crc_words_plain (torch ops on the card: the
@@ -564,32 +691,8 @@ def kernel_line(res):
 def phase_demote(torch, imgs):
     """B7 against its plain version on the cost-check inputs of a 32 bpp
     1-pass batch (the 1-pass tables)."""
-    from fpng_tpu_torch.models.encoder import tokens
-    from fpng_tpu_torch.ops.encfuse import demote_mask, demote_mask_plain
-    from fpng_tpu_torch.tables import one_pass_state
-
-    B, H, W_, Cc = imgs.shape
-    st = one_pass_state(Cc, DEV)
-    deltas, _, mstart, mlen, _, ls, le = tokens(
-        torch.from_numpy(imgs).to(DEV), Cc)
-    args = (deltas, ls, le, mstart & (mlen == 1), st.tbl.expand(B, 8, 128)
-            .contiguous())
-    got, want = demote_mask(*args), demote_mask_plain(*args)
-    check(torch.equal(got, want), "B7 mask differs from plain")
-    n_px, n_cand = B * H * W_, int(args[3].sum())
-    check(n_cand > 0 and bool(got.any()), "the corpus has no demotion")
-    return kernel_line({"demote_mask": dict(
-        max_abs_err=int((got.to(torch.int32) - want.to(torch.int32))
-                        .abs().max()),
-        ms=cuda_ms(torch, lambda: demote_mask(*args), 20),
-        plain_ms=cuda_ms(torch, lambda: demote_mask_plain(*args), 5),
-        # cand read and the mask written, a byte a pixel; 4 delta bytes,
-        # len_sym and len_extra read per candidate; the 288 sizes per
-        # image; ~12 ops a candidate, 2 a pixel
-        bound=bound(2 * n_px + 12 * n_cand + 4 * 288 * B,
-                    12 * n_cand + 2 * n_px),
-        shape=[B, H, W_, Cc], candidates=n_cand,
-        demoted=int(got.sum()))})
+    return kernel_line({"demote_mask": b7_times(torch,
+                                                b7_inputs(torch, imgs))})
 
 
 def phase_pk1(torch, T, imgs):
@@ -763,16 +866,17 @@ def decode_spans(torch, T, pngs, Cc, runs=3):
     return out
 
 
-def profile_decode(torch, T, pngs, Cc):
-    """One decode under torch.profiler: (wall s, device busy s, device
-    idle share, the five device kernels with the most time)."""
+def profile_device(torch, fn):
+    """One call of fn() under torch.profiler: (wall s, device busy s,
+    device idle share, the five device kernels with the most time, s by
+    kernel name)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t = time.perf_counter()
-        T.decode_batch(pngs, Cc, device=DEV)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     spans, per_name = [], {}
@@ -783,7 +887,7 @@ def profile_decode(torch, T, pngs, Cc):
         spans.append((s, t_end))
         per_name[e.name] = per_name.get(e.name, 0.0) + (t_end - s) / 1e6
     if not spans:
-        return wall, None, None, []
+        return wall, None, None, [], per_name
     spans.sort()
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, t_end in spans[1:]:
@@ -794,7 +898,34 @@ def profile_decode(torch, T, pngs, Cc):
             cur_e = max(cur_e, t_end)
     busy = (busy + cur_e - cur_s) / 1e6
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
-    return wall, busy, 1 - busy / wall, [[k[:60], v] for k, v in top]
+    return wall, busy, 1 - busy / wall, [[k[:60], v] for k, v in top], \
+        per_name
+
+
+def profile_decode(torch, T, pngs, Cc):
+    """One decode under torch.profiler: (wall s, device busy s, device
+    idle share, the five device kernels with the most time)."""
+    return profile_device(torch, lambda: T.decode_batch(pngs, Cc,
+                                                        device=DEV))[:4]
+
+
+def profile_encode(torch, T, imgs):
+    """One encode_batch under torch.profiler (after a warm-up): wall and
+    device busy time, idle share, the five device operations with the
+    most time, and the shares of the busy time of B1 (encfuse_kernel) and
+    B2 (idat_crc_kernel)."""
+    T.encode_batch(imgs, device=DEV)
+    wall, busy, idle, top, per = profile_device(
+        torch, lambda: T.encode_batch(imgs, device=DEV))
+    check(busy, "the profiled encode recorded no device time")
+
+    def share(tag):
+        return sum(v for k, v in per.items() if tag in k) / busy
+
+    return dict(wall_s=wall, device_busy_s=busy, device_idle_share=idle,
+                top_device=top, device_ops=len(per),
+                b1_share=share("encfuse_kernel"),
+                b2_share=share("idat_crc_kernel"))
 
 
 def walk_split(torch, pngs):
@@ -864,15 +995,17 @@ def phase_large_raster_2g(torch, T, reset, read):
     check(paths == {"walk8": 0, "pk1": 0, "chunked": 1} and hand == 0,
           f"large raster paths {paths}, {hand} host hand-offs")
     check(launches["deposit_bits"] == 1 and
-          launches["crc32_words_masked_raw"] == 1, f"large raster "
+          launches["crc32_words_masked_raw"] == 1 and
+          launches["encode_bits_fused"] == 1, f"large raster "
           f"launches {launches}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(zlib_check(pngs[0], img[0]), "large raster zlib check")
+    b1_checked(torch, b1_inputs(torch, img), "large_raster_2g")
     zlen = int.from_bytes(pngs[0][50:54], "big")
     line("large_raster_2g", batch=list(img.shape), raster_bytes=raster_bytes,
          zlib_bytes=zlen, bits_per_raster_byte=8 * zlen / raster_bytes,
          encode_s=enc_s, decode_s=dec_s, paths=paths, host_handoffs=hand,
-         peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
-         launches=launches)
+         peak_device_gb=peak_gb, b1_bit_exact=True, launches=launches)
 
 
 def abs_err(torch, a, b):
@@ -909,11 +1042,6 @@ def p1_times(torch):
         got = P1.depparts(cu, big, ohc0, mode)
         want = P1.depparts_plain(cu, big, ohc0, mode)
         check(torch.equal(got, want), f"P1 {mode} differs from plain")
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(10):
-            P1.depparts(cu, big, ohc0, mode)
-        host_ms = (time.perf_counter() - t) * 1e2
         bms, by = mode_bound[mode]
         modes[mode] = dict(
             max_abs_err=abs_err(torch, got, want),
@@ -922,7 +1050,8 @@ def p1_times(torch):
                 cu, big, ohc0, mode), 3),
             **profiler_line(profiled_ms(torch, lambda: P1.depparts(
                 cu, big, ohc0, mode))),
-            host_ms=host_ms, bound_ms=bms, bound_by=by, library_ms=None)
+            host_ms=host_ms(torch, lambda: P1.depparts(cu, big, ohc0, mode)),
+            bound_ms=bms, bound_by=by, library_ms=None)
     # the library yardsticks: every step's products, the sum over walks
     # outside the calls.  dotbf16: one batched bf16 matmul, (B, T*WPS*8,
     # 4096) @ (B, 4096, 128); dot: torch._int_mm on each image's stacked
@@ -1004,13 +1133,9 @@ def phase_probes(torch):
         prof = profiled_ms(torch, lambda: P2.int8_mxu(
             a, b, dtype=dt, reps=reps, T=Tn2))
         # the host's time to enqueue one call (two allocations, two
-        # launches through ctypes), with nothing waited for
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(10):
-            P2.int8_mxu(a, b, dtype=dt, reps=reps, T=Tn2)
-        host_ms = (time.perf_counter() - t) * 1e2
-        torch.cuda.synchronize()
+        # launches through ctypes)
+        enqueue_ms = host_ms(torch, lambda: P2.int8_mxu(
+            a, b, dtype=dt, reps=reps, T=Tn2))
         clocks = subprocess.run(
             ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
              "--format=csv,noheader"], capture_output=True,
@@ -1019,7 +1144,7 @@ def phase_probes(torch):
             max_abs_err=abs_err(torch, got, want), ms=ms,
             plain_ms=cuda_ms(torch, lambda: P2.int8_mxu_plain(
                 a, b, dtype=dt, reps=reps), 3),
-            library_ms=lib_ms, **profiler_line(prof), host_ms=host_ms,
+            library_ms=lib_ms, **profiler_line(prof), host_ms=enqueue_ms,
             sm_clocks_after=clocks,
             # achieved tera-operations/s and the share of this type's dense
             # tensor-core peak, by CUDA events and by the profiler's time
@@ -1246,6 +1371,9 @@ def main():
         modes, shape = p1_times(torch)
         line("p1", card=card, shape=shape, modes=modes)
         return
+    if sys.argv[1:] == ["--enc"]:
+        line("enc", card=card, **enc_times(torch, bench))
+        return
 
     # --- 3. kernels against their plain versions ------------------------------
     imgs = bench.make_corpus("real3")
@@ -1265,7 +1393,8 @@ def main():
           f"a kernel of the walk8 path never launched: {launches}")
     check(launches["walk_fix8"] == 1, "B3 launched more than once a walk")
     check(launches["crc32_words_masked_raw"] == 1 and
-          launches["expand"] == 1, "B2 or B6 not one launch a call")
+          launches["expand"] == 1 and launches["encode_bits_fused"] == 1,
+          "B1, B2 or B6 not one launch a call")
     check(not any(launches[k] for k in ("demote_mask", "walk_fix",
                                         "finalize_records", "deposit_bits")),
           f"a kernel off the headline path launched: {launches}")
@@ -1326,6 +1455,8 @@ def main():
          runs=span_runs)
     line("decode_profile", batch=[B, H, W, Cc], wall_s=wall,
          device_busy_s=busy, device_idle_share=idle, top_device=top)
+    line("encode_profile", batch=[B, H, W, Cc],
+         **profile_encode(torch, T, imgs))
 
     # --- 5. large raster -------------------------------------------------------
     big = bench.make_corpus_4k()
@@ -1345,6 +1476,7 @@ def main():
     check(decode_batch.paths == {"walk8": 2, "pk1": 0, "chunked": 0},
           f"4K decode paths {decode_batch.paths}")
     check(decode_batch.device_images == 4, "4K images not decoded on device")
+    b1_checked(torch, b1_inputs(torch, big), "4K")
     _, dargs4, wargs4, nc4 = pack_batch(torch, bp)
     walk4k_ms = cuda_ms(torch, lambda: walk_fix8(*wargs4, n_chunks=nc4), 5)
     H4, W4, C4 = big.shape[1:]

@@ -1,6 +1,6 @@
 // Device helpers shared by the port's kernels: block scans and reductions,
-// and the monotone bit deposit that the encoder (encfuse.cu) and the
-// decoder's record expansion (deposit.cu) both use.
+// and the monotone bit deposit of the chunked decode's record expansion
+// (deposit.cu).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -17,8 +17,8 @@
 // writes each touched word once; the decoder's record stream is mostly
 // zero-width slots, so the reads dominate.  Loads are staged through shared
 // memory so that global reads are coalesced while each thread still walks
-// kItems consecutive units and ORs whole words (the same BitSink as the
-// encoder's deposit, fpng_tpu_torch/csrc/common.cuh).
+// kItems consecutive units and ORs whole words (BitSink,
+// fpng_tpu_torch/csrc/common.cuh).
 
 #include "common.cuh"
 

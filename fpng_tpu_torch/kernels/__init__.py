@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # desc, tbl, base_bits, B, N, num_words, words, total, last_tok,
-    # block_offsets, stream
+    # scratch, stream
     "fpng_encfuse": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
     # words, total_bits, adler, meta, table, shifts, B, NW, crc, stream
     "fpng_idat_crc": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],

@@ -12,8 +12,9 @@ One packed descriptor per unit of the token stream, plus the image's
               13-25 extra_val  trailing bit value
               26    tok_start  reference flush-rule token starts
 
-encode_bits_fused wraps kernel B1 (csrc/encfuse.cu); encode_bits_plain is
-its plain version, the materialize -> offsets -> scatter chain.
+encode_bits_fused wraps kernel B1 (csrc/encfuse.cu), one launch that reads
+desc once and writes every word once; encode_bits_plain is its plain
+version, the materialize -> offsets -> scatter chain.
 demote_mask wraps kernel B7 (csrc/demote.cu), the 32 bpp 1-pass cost
 check; demote_mask_plain is its plain version.
 """
@@ -31,7 +32,8 @@ DESC_EXTRA_N_SHIFT = 10
 DESC_EXTRA_VAL_SHIFT = 13
 DESC_TOK_START = 1 << 26
 
-_TILE = 2048  # units per block of the kernel (kTile in csrc/common.cuh)
+_TILE = 4096  # units a tile of the kernel (kEncTile in csrc/encfuse.cu)
+_SLOT_BYTES = 24  # a tile's published run (Slot in csrc/encfuse.cu)
 _MAX_BASE_BITS = 1 << 16  # base_bits bound: a header prefix is < 640 bytes
 INT32_MAX = (1 << 31) - 1
 
@@ -82,6 +84,13 @@ def encode_bits_plain(desc: torch.Tensor, tbl: torch.Tensor,
             last_tok.clamp(max=INT32_MAX).to(torch.int32))
 
 
+def _scratch_bytes(B: int, N: int) -> int:
+    """Bytes of B1's scratch (zeroed by the kernel's entry point): the
+    ticket, then an aggregate and an inclusive slot a tile."""
+    tiles = B * max(1, -(-N // _TILE))
+    return 16 + 2 * tiles * _SLOT_BYTES
+
+
 def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
                       base_bits: torch.Tensor, num_words: int):
     """Lookup + offsets + deposit over a (B, N) desc stream: the wrapper of
@@ -94,8 +103,9 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
     int64).  Every word equals encode_bits_plain's; num_words is below
     2^26, so a stream whose total saturates is past every word and past
     the stored-fallback budget.  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel (three launches, counted in
-    `encode_bits_fused.launches`) or raises.
+    a CUDA tensor launches the kernel (one launch, counted in
+    `encode_bits_fused.launches`, after a memset of its scratch) or
+    raises.
     """
     if desc.device.type == "cpu":
         return encode_bits_plain(desc, tbl, base_bits, num_words)
@@ -107,16 +117,17 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
     if N >= 1 << 31 or num_words >= 1 << 26:
         raise ValueError("encode_bits_fused: words past 2^31 bits")
     dev = desc.device
-    nblk = -(-N // _TILE)
-    words = torch.zeros((B, num_words), dtype=torch.int32, device=dev)
+    # the kernel writes every word, total_bits and last_tok
+    words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
     total = torch.empty(B, dtype=torch.int32, device=dev)
-    last_tok = torch.full((B,), -1, dtype=torch.int32, device=dev)
-    block_offs = torch.empty((B, nblk), dtype=torch.int64, device=dev)
+    last_tok = torch.empty(B, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_scratch_bytes(B, N), dtype=torch.uint8,
+                          device=dev)
     K.check(K.lib().fpng_encfuse(
         desc.data_ptr(), tbl.data_ptr(), base_bits.data_ptr(), B, N,
         num_words, words.data_ptr(), total.data_ptr(), last_tok.data_ptr(),
-        block_offs.data_ptr(), K.stream_ptr(dev)), "fpng_encfuse")
-    encode_bits_fused.launches += 3  # encfuse_sums, _scan, _deposit
+        scratch.data_ptr(), K.stream_ptr(dev)), "fpng_encfuse")
+    encode_bits_fused.launches += 1
     return words, total, last_tok
 
 

@@ -74,20 +74,27 @@ def _desc(imgs, device):
     return desc, tbl, base
 
 
-@pytest.mark.parametrize("shape,nw_cut", [
-    ((2, 13, 29), 0), ((3, 64, 64), 0), ((1, 1, 1), 0), ((2, 127, 31), 0),
-    ((2, 100, 200), 0), ((2, 100, 200), 3000)])
-def test_encfuse_matches_plain(rng, shape, nw_cut):
+@pytest.mark.parametrize("shape,nw_cut,zero_tiles", [
+    ((2, 13, 29), 0, False), ((3, 64, 64), 0, False), ((1, 1, 1), 0, False),
+    ((2, 127, 31), 0, False), ((2, 100, 200), 0, False),
+    ((2, 100, 200), 3000, False), ((2, 40, 700), 0, True),
+    ((1, 2160, 3840), 0, False)])
+def test_encfuse_matches_plain(rng, shape, nw_cut, zero_tiles):
+    """B1 against its plain version, one launch a call; zero_tiles clears
+    units [4096, 12288) of each stream, two whole tiles of zero-width units
+    between tiles that share words."""
     B, H, W = shape
     imgs = np.stack([make_test_image(rng, H, W, 3, k)
                      for k in ("mixed", "flat", "noise")[:B]])
     dev = torch.device("cuda")
     desc, tbl, base = _desc(imgs, dev)
+    if zero_tiles:
+        desc[:, 4096:12288] = 0
     nw = nw_cut or _num_words(_budget(H, W, 3))  # nw_cut drops words
     n0 = encode_bits_fused.launches
     got = encode_bits_fused(desc, tbl, base, nw)
     torch.cuda.synchronize()
-    assert encode_bits_fused.launches == n0 + 3
+    assert encode_bits_fused.launches == n0 + 1
     want = encode_bits_plain(desc.cpu(), tbl.cpu(), base.cpu(), nw)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -333,7 +340,8 @@ def test_decode_batch_takes_walk8_on_card():
     assert all(f.launches > n for f, n in zip(counters, before))
 
 
-@pytest.mark.parametrize("shape", [(3, 40, 100), (2, 1, 1), (1, 300, 517)])
+@pytest.mark.parametrize("shape", [(3, 40, 100), (2, 1, 1), (1, 300, 517),
+                                   (3, 21, 13)])
 def test_demote_mask_matches_plain(shape):
     """B7 on 4-channel images over a 2-value alphabet (many 1-pixel match
     starts), with the 1-pass tables, random code sizes and a table where
