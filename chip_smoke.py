@@ -54,7 +54,19 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      a time (in the order A B B A);
   bench: runs fpng_tpu_torch.bench at full size and checks its JSON line;
   cli: fpng_tpu_torch.cli's random-dims fuzz and its -f on a corrupted
-     file.
+     file;
+  mesh: parallel/mesh.py over make_mesh() (every card) and over [cuda:0,
+     cuda:0] at the headline: the sharded encode byte-identical to
+     encode_batch, the sharded decode of the dynamic-block files equal to
+     the input, B1, B2 and B3 once a shard, training_step against
+     hist_kernel, full_step_sharded against encode_kernel, and the 32 bpp
+     1-pass batch (B7 in each shard, PK=1 where a shard overflows walk8),
+     with MPix/s beside the single-batch calls';
+  multihost: tools/dryrun_multihost with one rank over NCCL, in its own
+     process;
+  harness: tools/verify_drive at 4 tiles, tools/bench_mesh on one card and
+     tools/prof_walk8 at the headline, tools/bench_large at 2 x 2160 x
+     3840 x 3, each one's output in its line.
 
     python3 chip_smoke.py --expand
 
@@ -407,7 +419,8 @@ def phase_kernels(torch, imgs):
                                            device=dev),
                           torch.full((B,), st.nacc, dtype=torch.int32,
                                      device=dev), num_chans=Cc,
-                          cost_check=False, num_words=nw)[3]
+                          cost_check=False, want_hist=False,
+                          num_words=nw)[3]
     prefixes = [st.prefix] * B
     plens = np.full(B, len(st.prefix), np.int64)
     raw_ip = raw_idat_prefix(prefixes).astype(np.int64)
@@ -1297,6 +1310,151 @@ def phase_cli(T, img, reset, read):
     return launches
 
 
+def best_s(fn, runs=3):
+    """(last result, the least host seconds of `runs` calls of fn())."""
+    times = []
+    for _ in range(runs):
+        out, t = timed(fn)
+        times.append(t)
+    return out, min(times)
+
+
+def phase_mesh(torch, T, imgs, pngs, real4, card, reset, read):
+    """parallel/mesh.py over make_mesh() (every card) and over [cuda:0,
+    cuda:0] at the headline: the sharded encode's bytes against
+    encode_batch's, the sharded decode of the dynamic-block files against
+    the input, B1, B2 and B3 once a shard (counters set to 0 just before),
+    training_step against hist_kernel, full_step_sharded against
+    encode_kernel on the whole batch; then the real4 1-pass batch (B7 in
+    each shard, the PK=1 walk where a shard's walk8 overflows).  MPix/s
+    best of three, beside the single-batch calls' in the same phase."""
+    from fpng_tpu_torch.models.decoder import _parse_one, decode_batch
+    from fpng_tpu_torch.models.encoder import encode_kernel, hist_kernel
+    from fpng_tpu_torch.parallel import mesh as M
+    from fpng_tpu_torch.tables import one_pass_state
+
+    B, H, W_, Cc = imgs.shape
+    dyn = [j for j, p in enumerate(pngs) if _parse_one(p)[7] is not None]
+    _, enc1 = best_s(lambda: T.encode_batch(imgs, device=DEV))
+    _, dec1 = best_s(lambda: T.decode_batch([pngs[j] for j in dyn], Cc,
+                                            device=DEV))
+    want4 = T.encode_batch(real4, device=DEV)
+    dyn4 = [j for j, p in enumerate(want4) if _parse_one(p)[7] is not None]
+    dev = torch.from_numpy(imgs).to(DEV)
+    hist = hist_kernel(dev, num_chans=Cc).sum(0)
+    st = one_pass_state(Cc, DEV)
+
+    def col(v):
+        return torch.full((B,), v, dtype=torch.int32, device=DEV)
+
+    out = {}
+    for name, mesh in (("every_card", M.make_mesh()),
+                       ("cuda0_x2", M.make_mesh(["cuda:0", "cuda:0"]))):
+        n = mesh.size
+        keep = dyn[:len(dyn) - len(dyn) % n]
+        files = [pngs[j] for j in keep]
+        reset()
+        got = M.encode_batch_sharded(mesh, imgs, 0)
+        dec, ok = M.decode_batch_sharded(mesh, files, H, W_, Cc)
+        launches = read()
+        paths = dict(decode_batch.paths)
+        check(got == pngs, f"mesh {name}: bytes differ from encode_batch")
+        check(bool(ok.all()) and np.array_equal(dec, imgs[keep]),
+              f"mesh {name}: sharded decode differs from the input")
+        check(launches["encode_bits_fused"] == n and
+              launches["crc32_words_masked_raw"] == n and
+              launches["walk_fix8"] == n,
+              f"mesh {name}: B1, B2, B3 not once a shard: {launches}")
+        check(all(launches[k] > 0 for k in ("finalize_records8",
+                                            "scatter_packed16", "expand")),
+              f"mesh {name}: a decode kernel never launched: {launches}")
+        check(paths == {"walk8": n, "pk1": 0, "chunked": 0},
+              f"mesh {name}: decode paths {paths}")
+        _, enc_s = best_s(lambda: M.encode_batch_sharded(mesh, imgs, 0))
+        _, dec_s = best_s(lambda: M.decode_batch_sharded(mesh, files, H, W_,
+                                                         Cc))
+        check(torch.equal(M.training_step(mesh, imgs, Cc), hist),
+              f"mesh {name}: training_step differs from hist_kernel")
+        words, bits, adler, ghist = M.full_step_sharded(mesh, imgs, Cc)
+        ref = encode_kernel(dev, st.codes.expand(B, -1),
+                            st.sizes.expand(B, -1), col(len(st.prefix) * 8),
+                            col(st.acc), col(st.nacc), num_chans=Cc,
+                            cost_check=False, want_hist=False,
+                            num_words=words.shape[1])
+        check(torch.equal(words, ref[0]) and torch.equal(bits, ref[1]) and
+              torch.equal(adler, ref[3]) and torch.equal(ghist, hist),
+              f"mesh {name}: full_step_sharded differs from encode_kernel")
+        keep4 = dyn4[:len(dyn4) - len(dyn4) % n]
+        reset()
+        got4 = M.encode_batch_sharded(mesh, real4, 0)
+        dec4, ok4 = M.decode_batch_sharded(
+            mesh, [want4[j] for j in keep4], *real4.shape[1:])
+        l4 = read()
+        p4 = dict(decode_batch.paths)
+        check(got4 == want4, f"mesh {name}: real4 bytes differ")
+        check(bool(ok4.all()) and np.array_equal(dec4, real4[keep4]),
+              f"mesh {name}: real4 sharded decode differs from the input")
+        check(l4["demote_mask"] == n and l4["walk_fix8"] == n and
+              p4["pk1"] > 0 and l4["walk_fix"] == p4["pk1"] and
+              l4["finalize_records"] == p4["pk1"],
+              f"mesh {name}: real4 1-pass did not take B7 and PK=1: {l4}, "
+              f"{p4}")
+        out[name] = dict(
+            devices=[str(d) for d in mesh.devices], batch=[B, H, W_, Cc],
+            decoded=len(keep), encode_mpix_s=B * H * W_ / 1e6 / enc_s,
+            decode_mpix_s=len(keep) * H * W_ / 1e6 / dec_s, encode_s=enc_s,
+            decode_s=dec_s, launches=launches, real4_1pass=dict(
+                decoded=len(keep4), paths=p4, launches=l4))
+    line("mesh", card=card, meshes=out,
+         single_batch=dict(encode_mpix_s=B * H * W_ / 1e6 / enc1,
+                           decode_mpix_s=len(dyn) * H * W_ / 1e6 / dec1,
+                           encode_s=enc1, decode_s=dec1, decoded=len(dyn)))
+    return out
+
+
+def phase_multihost():
+    """tools/dryrun_multihost on the card: one rank over NCCL, in its own
+    process, which must print its OK line."""
+    cmd = [sys.executable, "-m", "fpng_tpu_torch.tools.dryrun_multihost",
+           "--device", "cuda"]
+    r, secs = timed(lambda: subprocess.run(
+        cmd, cwd=HERE, capture_output=True, text=True, timeout=300))
+    out = r.stdout.strip().splitlines()
+    check(r.returncode == 0 and "MULTIHOST DRYRUN: OK" in out,
+          f"multihost dry run (rc {r.returncode}): {out[-5:]} "
+          f"{r.stderr[-1500:]}")
+    line("multihost", seconds=secs, output=out)
+
+
+def phase_harness(card, reset, read):
+    """The ported tools on the card, launch counters set to 0 before each:
+    verify_drive at 4 tiles, bench_mesh on one card at the headline,
+    prof_walk8 at the headline and bench_large at B = 2.  Each one's
+    output goes into its line; a failure fails the run."""
+    from fpng_tpu_torch.tools import (bench_large, bench_mesh, prof_walk8,
+                                      verify_drive)
+
+    runs = (
+        ("verify_drive", lambda: verify_drive.main(["--tiles", "4"])),
+        ("bench_mesh", lambda: bench_mesh.main(["1", "256", "128"])),
+        ("prof_walk8", lambda: prof_walk8.main(["256", "128"])),
+        ("bench_large", lambda: bench_large.main(["2"])))
+    for name, fn in runs:
+        buf = io.StringIO()
+        reset()
+        with contextlib.redirect_stdout(buf):
+            rc, secs = timed(fn)
+        launches = read()
+        text = buf.getvalue().splitlines()
+        check(rc == 0, f"{name} failed: {text[-5:]}")
+        check(launches["encode_bits_fused"] > 0 and
+              launches["walk_fix8"] > 0,
+              f"{name}: its kernels never launched: {launches}")
+        result = json.loads(text[-1]) if name == "bench_mesh" else text
+        line("harness", tool=name, card=card, seconds=secs, result=result,
+             launches=launches)
+
+
 def main():
     sys.path.insert(0, HERE)
     import torch
@@ -1672,6 +1830,11 @@ def main():
     bench_launches = phase_bench(torch, reset, read,
                                  walk8_path + pk1_path + ("demote_mask",))
     cli_launches = phase_cli(T, imgs[0], reset, read)
+
+    # --- mesh, multihost, harness: data-parallel runs and the tools ---------
+    phase_mesh(torch, T, imgs, pngs, mode_imgs[4], card, reset, read)
+    phase_multihost()
+    phase_harness(card, reset, read)
 
     # --- 8. close ------------------------------------------------------------
     check("jax" not in sys.modules, "JAX was imported")

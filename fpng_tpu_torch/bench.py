@@ -133,7 +133,7 @@ def _bench_encode(imgs: np.ndarray, flags: int, device):
         out = encode_kernel(dev, codes, sizes,
                             col([len(p) * 8 for p in prefixes]), col(pv),
                             col(pn), num_chans=Cc, cost_check=cost_check,
-                            num_words=num_words)
+                            want_hist=False, num_words=num_words)
         return out, prefixes
 
     def chained(step):
@@ -156,7 +156,7 @@ def _bench_encode(imgs: np.ndarray, flags: int, device):
     enc_s = chained(lambda h: run(h)[0][1])
 
     def run_e2e(h_cur):
-        (words, total_bits, last_tok, adler), prefixes = run(h_cur)
+        (words, total_bits, last_tok, adler, _), prefixes = run(h_cur)
         crc = launch_assemble(words, total_bits, adler, prefixes)
         return (words, crc, total_bits, last_tok, adler), prefixes
 
@@ -183,21 +183,16 @@ def _bench_encode(imgs: np.ndarray, flags: int, device):
 def _bench_decode(imgs: np.ndarray, pngs, device):
     """(decode MPix/s, stored files skipped, decode path) through the
     dispatch decode_batch ships."""
-    from .models.decoder import _parse_one, dispatch_kernel, pack_streams
-    from .models.transfer import to_device
+    from .models.decoder import dispatch_kernel
+    from .tools.profile_kernels import decode_inputs
 
     B, H, W, Cc = imgs.shape
-    metas = [_parse_one(p) for p in pngs]
-    keep = [j for j, m in enumerate(metas) if m[7] is not None]
-    skipped = len(pngs) - len(keep)
-    if not keep:
+    args, imgs = decode_inputs(pngs, imgs, device)
+    skipped = len(pngs) - len(imgs)
+    if args is None:
         return 0.0, skipped, "none"
-    imgs = imgs[keep]
-    stream, luts, p0, zl = pack_streams([metas[j] for j in keep])
-    args = [to_device(a, device)
-            for a in (stream, luts.astype(np.int64), p0, zl)]
-    mpix = len(keep) * H * W / 1e6
-    zmax = int(zl.max())
+    mpix = len(imgs) * H * W / 1e6
+    zmax = int(args[3].max())
 
     def run():
         out = dispatch_kernel(*args, h=H, w=W, c=Cc, zmax=zmax)

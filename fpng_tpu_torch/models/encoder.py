@@ -138,14 +138,18 @@ def build_desc(imgs, codes, sizes, pend_val, pend_n, *, num_chans: int,
 
 
 def encode_kernel(imgs, codes, sizes, base_bits, pend_val, pend_n, *,
-                  num_chans: int, cost_check: bool, num_words: int):
+                  num_chans: int, cost_check: bool, want_hist: bool,
+                  num_words: int):
     """Device encode of a (B, H, W, C) uint8 batch.
 
     Returns (words (B, num_words) int32, total_bits (B,) int32,
-    last_token_start (B,) int32, adler (B,) int64).
+    last_token_start (B,) int32, adler (B,) int64, hist): hist is the
+    (B, 288) int64 token histogram of the tokens this encode emits (the
+    prologue's own literals and matches, plus the filter bytes) when
+    want_hist, else a (B, 1) zero tensor.
     """
     B, H, W, Cc = imgs.shape
-    desc, tbl, deltas, *_ = build_desc(
+    desc, tbl, deltas, lit_pixel, mstart, len_sym = build_desc(
         imgs, codes, sizes, pend_val, pend_n, num_chans=num_chans,
         cost_check=cost_check)
     words, total_bits, last_tok = encode_bits_fused(
@@ -156,21 +160,30 @@ def encode_kernel(imgs, codes, sizes, base_bits, pend_val, pend_n, *,
     stream_u8 = torch.cat(
         [fvals.to(torch.uint8)[None, :, None].expand(B, H, 1),
          deltas.reshape(B, H, W * Cc)], dim=2).reshape(B, -1)
-    return words, total_bits, last_tok, adler32_bytes(stream_u8)
+    hist = (_token_hist(deltas, lit_pixel, mstart, len_sym) if want_hist
+            else torch.zeros((B, 1), dtype=torch.int64, device=imgs.device))
+    return words, total_bits, last_tok, adler32_bytes(stream_u8), hist
 
 
-def hist_kernel(imgs, *, num_chans: int) -> torch.Tensor:
-    """Pass 1 of 2-pass mode: the (B, 288) int64 token histogram of each
-    image, filter bytes included (symbol 0 once for row 0, symbol 2 for the
-    other H - 1 rows)."""
-    B, H = imgs.shape[:2]
-    deltas, eq, mstart, _, _, len_sym, _ = tokens(imgs, num_chans)
+def _token_hist(deltas, lit_pixel, mstart, len_sym) -> torch.Tensor:
+    """(B, 288) int64 histogram of the literal bytes of the literal pixels,
+    the match length symbols and the filter bytes (symbol 0 once for row
+    0, symbol 2 for the other H - 1 rows)."""
+    B, H = deltas.shape[:2]
     hist = _sym_hist(deltas.reshape(B, -1),
-                     (~eq)[..., None].expand(deltas.shape).reshape(B, -1)) + \
+                     lit_pixel[..., None].expand(deltas.shape)
+                     .reshape(B, -1)) + \
         _sym_hist(len_sym.reshape(B, -1), mstart.reshape(B, -1))
     hist[:, 0] += 1
     hist[:, 2] += H - 1
     return hist
+
+
+def hist_kernel(imgs, *, num_chans: int) -> torch.Tensor:
+    """Pass 1 of 2-pass mode: the (B, 288) int64 token histogram of each
+    image, filter bytes included."""
+    deltas, eq, mstart, _, _, len_sym, _ = tokens(imgs, num_chans)
+    return _token_hist(deltas, ~eq, mstart, len_sym)
 
 
 # ---------------------------------------------------------------------------
@@ -320,10 +333,10 @@ def _encode_launch(dev_imgs, images: np.ndarray, flags: int, hist):
     def col(a):
         return to_device(np.asarray(a, np.int32), dev)
 
-    words, total_bits, last_tok, adler = encode_kernel(
+    words, total_bits, last_tok, adler, _ = encode_kernel(
         dev_imgs, codes, sizes, col([len(p) * 8 for p in prefixes]),
         col(pend_val), col(pend_n), num_chans=Cc, cost_check=cost_check,
-        num_words=_num_words(budget))
+        want_hist=False, num_words=_num_words(budget))
     crc = launch_assemble(words, total_bits, adler, prefixes)
     return (start_readback((words, crc, total_bits, last_tok, adler)),
             prefixes, budget)

@@ -7,6 +7,7 @@ also runs where JAX is not installed, without tests/conftest.py:
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import functools
 import zlib
 
 import numpy as np
@@ -645,3 +646,46 @@ def test_scatter_packed16_tiles_on_real_records():
                 torch.cuda.synchronize()
                 assert scatter_packed16.launches == n0 + 1
                 assert torch.equal(got.cpu(), want), (name, k8, m_.dim())
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_mesh_on_card_matches_one_batch(n):
+    """The sharded calls over n entries of cuda:0 against the single-batch
+    calls: bytes, pixels, the fused and the stepped histograms, and B1 and
+    B3 once a shard."""
+    from fpng_tpu_torch.models.encoder import encode_kernel, hist_kernel
+    from fpng_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(["cuda:0"] * n)
+    imgs = np.stack(list(synthetic_corpus(3, size=64))[:8])
+    want = T.encode_batch(imgs, 0, device="cuda")
+    b1, b3 = encode_bits_fused.launches, W.walk_fix8.launches
+    got = M.encode_batch_sharded(mesh, imgs, 0)
+    assert got == want and encode_bits_fused.launches == b1 + n
+    keep = [j for j, p in enumerate(want) if _parse_one(p)[7] is not None]
+    keep = keep[:len(keep) - len(keep) % n]
+    dec, ok = M.decode_batch_sharded(mesh, [want[j] for j in keep], 64, 64, 3)
+    assert ok.all() and np.array_equal(dec, imgs[keep])
+    assert W.walk_fix8.launches == b3 + n
+    dev = torch.from_numpy(imgs).cuda()
+    hist = hist_kernel(dev, num_chans=3).sum(0)
+    assert torch.equal(M.training_step(mesh, imgs, 3), hist)
+    words, bits, adler, ghist = M.full_step_sharded(mesh, imgs, 3)
+    st = one_pass_state(3, "cuda")
+    col = functools.partial(torch.full, (8,), dtype=torch.int32,
+                            device="cuda")
+    ref = encode_kernel(dev, st.codes.expand(8, -1), st.sizes.expand(8, -1),
+                        col(len(st.prefix) * 8), col(st.acc), col(st.nacc),
+                        num_chans=3, cost_check=False, want_hist=True,
+                        num_words=words.shape[1])
+    for a, b in zip((words, bits, adler), ref[:2] + ref[3:4]):
+        assert torch.equal(a, b)
+    assert torch.equal(ghist, ref[4].sum(0)) and torch.equal(ghist, hist)
+
+
+def test_dryrun_multichip_on_every_card():
+    from fpng_tpu_torch import graft_entry
+
+    graft_entry.dryrun_multichip(torch.cuda.device_count(), device="cuda")
+    fn, args = graft_entry.entry()
+    assert fn(*args)[4].shape == (2, 288)

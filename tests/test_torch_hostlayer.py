@@ -2,9 +2,9 @@
 
 The port keeps its own copies of fpng_tpu's framework-free modules
 (constants, bitio, huffman, container, golden, tables + _tables_data,
-train, runtime/native.cpp).  On the same inputs they must give the same
-results; the port's native runtime builds under .build/fpng_tpu_torch/,
-never inside a package directory.
+train, runtime/native.cpp, utils/pngreader, utils/pngcheck).  On the
+same inputs they must give the same results; the port's native runtime
+builds under .build/fpng_tpu_torch/, never inside a package directory.
 """
 
 import os
@@ -29,7 +29,9 @@ from fpng_tpu_torch import huffman as Thuffman
 from fpng_tpu_torch import runtime as Truntime
 from fpng_tpu_torch import tables as Ttables
 from fpng_tpu_torch import train as Ttrain
+from fpng_tpu.utils import pngcheck as Fpngcheck
 from fpng_tpu.utils import pngreader as Fpngreader
+from fpng_tpu_torch.utils import pngcheck as Tpngcheck
 from fpng_tpu_torch.utils import pngreader as Tpngreader
 from tests.conftest import make_test_image
 
@@ -208,3 +210,44 @@ def test_pngreader_matches(images, desired):
         assert np.array_equal(_load_both(png, desired)[0][0][..., :c],
                               img[..., :desired])
     assert n_err > 0
+
+
+def _damaged(png: bytes) -> list[bytes]:
+    """tests/test_pngcheck.py's structural damage classes, applied to png."""
+    import struct
+    import zlib
+
+    out = []
+    bad = bytearray(png)
+    bad[-5] ^= 0xFF  # IEND CRC
+    out.append(bytes(bad))
+    out += [b"\x88" + png[1:], png + b"xx", png + png[-12:],
+            png[:8] + png[33:50] + png[8:33] + png[50:], png[:len(png) - 20]]
+    bad = bytearray(png)  # zlib damage under a fixed-up IDAT CRC
+    idat_len = struct.unpack(">I", png[50:54])[0]
+    bad[60] ^= 0xFF
+    bad[58 + idat_len:62 + idat_len] = struct.pack(
+        ">I", zlib.crc32(bytes(bad[54:58 + idat_len])))
+    out.append(bytes(bad))
+    bad = bytearray(png)  # illegal bit depth for the color type
+    bad[24] = 7
+    bad[29:33] = struct.pack(">I", zlib.crc32(bytes(bad[12:29])))
+    out.append(bytes(bad))
+    return out
+
+
+@pytest.mark.parametrize("which", ["encoded", "damaged", "corrupted"])
+def test_pngcheck_matches(files, which):
+    """check() on the port's copy and fpng_tpu's: the same violations, in
+    the same order, on clean files of every mode, on each structural
+    damage class and on random byte flips."""
+    clean, corrupted = files
+    datas = {"encoded": clean,
+             "damaged": [d for png in clean[:6] for d in _damaged(png)],
+             "corrupted": corrupted}[which]
+    flagged = 0
+    for data in datas:
+        got = Tpngcheck.check(data)
+        assert got == Fpngcheck.check(data)
+        flagged += bool(got)
+    assert flagged == (0 if which == "encoded" else len(datas))
