@@ -36,6 +36,17 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      walk gate refusing as it does for a raster past 2^27 allocated
      slots, the same 32 images on the chunked decode (B10) and the
      overflow stream through chunked -> host;
+  walk_gate_edge: decodes the tallest 4K-wide raster the walk gate admits,
+     1 x 5824 x 7680 x 3 (134.2 M slots), on walk8, on PK=1
+     (FPNG_TPU_WALK8=0) and on the chunked decode (the gate patched to
+     refuse), each bit-exact against the input, zlib and the chunked
+     output, with B3, B4, B5, B6 and B8 timed on its streams and each
+     path's peak device memory;
+  extreme_shapes: tests/test_fuzz_shapes.py's eight shapes (dim 1, extreme
+     aspect ratios) at 3 and 4 channels in 1-pass and 2-pass, and
+     forced-stored at 1 x 8193 x 3: the card's PNG bytes equal the port's
+     CPU run, each decodes bit-exact on the path the CPU tests pin (the
+     tall shapes on PK=1);
   large_raster_2g: encodes one 1 x 6144 x 7680 x 3 raster (141.6 M bytes,
      past 2^27) and decodes it on the chunked decode (B1 held against its
      plain version on its stream);
@@ -152,6 +163,10 @@ KERNELS = [  # name, source, the TPU kernel it replaces
 MODES = [  # name, channels, 2-pass (bench.py's real3/real4 x 1/2-pass)
     ("real3_2pass", 3, True), ("real4_1pass", 4, False),
     ("real4_2pass", 4, True)]
+SHAPES = [  # tests/test_fuzz_shapes.py's: dim 1 and extreme aspect ratios
+    (1, 1), (1, 8193), (8193, 1), (2, 4097), (4096, 2), (3, 2731),
+    (1, 257), (513, 1)]
+TALL = {(8193, 1), (4096, 2), (513, 1)}
 
 
 def check(cond, what):
@@ -882,23 +897,29 @@ def decode_spans(torch, T, pngs, Cc, runs=3):
 def profile_device(torch, fn):
     """One call of fn() under torch.profiler: (wall s, device busy s,
     device idle share, the five device kernels with the most time, s by
-    kernel name)."""
+    kernel name).  A trace that holds no device activity at all (the
+    profiler now and then drops a whole trace) is taken again, up to three
+    calls in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-    spans, per_name = [], {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        s, t_end = e.time_range.start, e.time_range.end
-        spans.append((s, t_end))
-        per_name[e.name] = per_name.get(e.name, 0.0) + (t_end - s) / 1e6
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        spans, per_name = [], {}
+        for e in prof.events():
+            if getattr(e, "device_type", None) != \
+                    torch.autograd.DeviceType.CUDA:
+                continue
+            s, t_end = e.time_range.start, e.time_range.end
+            spans.append((s, t_end))
+            per_name[e.name] = per_name.get(e.name, 0.0) + (t_end - s) / 1e6
+        if spans:
+            break
     if not spans:
         return wall, None, None, [], per_name
     spans.sort()
@@ -965,12 +986,12 @@ def walk_split(torch, pngs):
     return out
 
 
-def make_large_raster(H=6144, W=7680):
+def make_large_raster(H=6144, W=7680, noise=True):
     """(1, H, W, 3): a mosaic of the 3-channel 256 x 256 tiles, built as
-    bench.make_corpus_4k builds its mosaic (rng seed 7), plus noise in
-    [0, 8) on every byte, so that the tokens average over 2.7 bits and the
-    chunked walk's 768 steps a 2048-bit chunk hold (6144 x 7680 x 3 is a
-    raster of 141.6 M bytes, past 2^27)."""
+    bench.make_corpus_4k builds its mosaic (rng seed 7), with noise in
+    [0, 8) on every byte unless noise is False, so that the tokens average
+    over 2.7 bits and the chunked walk's 768 steps a 2048-bit chunk hold
+    (6144 x 7680 x 3 is a raster of 141.6 M bytes, past 2^27)."""
     from fpng_tpu_torch.train import synthetic_corpus
 
     tiles = [np.ascontiguousarray(t[:256, :256])
@@ -980,8 +1001,132 @@ def make_large_raster(H=6144, W=7680):
         np.concatenate([tiles[rng.integers(0, len(tiles))]
                         for _ in range(-(-W // 256))], axis=1)[:, :W]
         for _ in range(-(-H // 256))], axis=0)[:H]
-    img += rng.integers(0, 8, img.shape, dtype=np.uint8)  # wraps mod 256
+    if noise:
+        img += rng.integers(0, 8, img.shape, dtype=np.uint8)  # wraps mod 256
     return img[None]
+
+
+EDGE = (5824, 7680)  # the tallest raster 7680 x 3 wide that walk8.fits admits
+
+
+def phase_walk_gate_edge(torch, T, reset, read):
+    """The tallest 4K-wide raster the walk gate admits, 1 x 5824 x 7680 x 3
+    (134.2 M slots: past fpng_tpu's VMEM cap of 28.3 M slots, which the
+    port drops), make_large_raster's mosaic without the noise.  decode_batch
+    on walk8, on PK=1 (FPNG_TPU_WALK8=0) and on the chunked decode (the
+    gate patched to refuse), each bit-exact against the input and the zlib
+    check, the walks' output against the chunked one, each path through
+    its kernels with no host hand-off; then B3, B4, B5, B6 and B8 timed on
+    the raster's streams (B5 and B6 held against their plain versions)."""
+    from fpng_tpu_torch.models import decoder as TD
+    from fpng_tpu_torch.models.decoder import decode_batch
+    from fpng_tpu_torch.ops import specdec_tpu as PK
+    from fpng_tpu_torch.ops import walk8 as WK
+    from fpng_tpu_torch.ops.bitpack import scatter_packed16
+    from fpng_tpu_torch.ops.expand import expand
+
+    H, W = EDGE
+    img = make_large_raster(H, W, noise=False)
+    Cc = img.shape[3]
+    bpl = W * Cc
+    # the next raster up allocates 8 rows more
+    check(WK.fits(H, bpl) and not WK.fits(H + 8, bpl),
+          f"{H} x {bpl} is not the walk gate's edge")
+    reset()
+    pngs, enc_s = timed(lambda: T.encode_batch(img, device=DEV))
+    enc_launches = {k: v for k, v in read().items() if v}
+    check(enc_launches == {"encode_bits_fused": 1,
+                           "crc32_words_masked_raw": 1},
+          f"edge raster encode launches {enc_launches}")
+    check(not is_stored(pngs[0]), "the edge raster was stored")
+    check(zlib_check(pngs[0], img[0]), "edge raster zlib check")
+    path_kernels = {
+        "walk8": ("walk_fix8", "finalize_records8", "scatter_packed16",
+                  "expand"),
+        "pk1": ("walk_fix", "finalize_records", "scatter_packed16", "expand"),
+        "chunked": ("deposit_bits",)}
+    outs, res = {}, {}
+    walk_gate = TD.fits
+    try:
+        for path, kernels in path_kernels.items():
+            if path == "pk1":
+                os.environ["FPNG_TPU_WALK8"] = "0"
+            if path == "chunked":
+                TD.fits = lambda h, bpl: False
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            reset()
+            (sts, got), dec_s = timed(lambda: T.decode_batch(pngs, Cc,
+                                                             device=DEV))
+            launches = {k: v for k, v in read().items() if v}
+            os.environ.pop("FPNG_TPU_WALK8", None)
+            check(sts == [0] and np.array_equal(got[0], img[0]),
+                  f"edge raster on {path}: status {sts} or pixels differ")
+            want = {"walk8": 0, "pk1": 0, "chunked": 0, path: 1}
+            check(decode_batch.paths == want and
+                  decode_batch.host_handoffs == 0,
+                  f"edge raster on {path}: paths {decode_batch.paths}, "
+                  f"{decode_batch.host_handoffs} host hand-offs")
+            check(launches == {k: 1 for k in kernels},
+                  f"edge raster on {path}: launches {launches}")
+            outs[path] = got[0]
+            res[path] = dict(
+                decode_s=dec_s,
+                passes=(WK.walk_fix8.passes if path == "walk8" else
+                        PK.walk_fix.passes if path == "pk1" else None),
+                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                start_device_gb=start / 1e9)
+    finally:
+        TD.fits = walk_gate
+        os.environ.pop("FPNG_TPU_WALK8", None)
+    for path in ("walk8", "pk1"):
+        check(np.array_equal(outs[path], outs["chunked"]),
+              f"edge raster: {path} output differs from the chunked one")
+    del outs, got
+
+    # the kernels at this raster, on its own streams
+    Bd, dargs, wargs, nc = pack_batch(torch, pngs)
+    n_slots = H * bpl
+    k = {}
+    g3 = WK.walk_fix8(*wargs, n_chunks=nc)
+    k["walk_fix8"] = dict(ms=cuda_ms(torch, lambda: WK.walk_fix8(
+        *wargs, n_chunks=nc), 3), bound_ms=walk_bound(*wargs[:2], g3, Bd,
+                                                     nc)[0],
+        passes=int(g3[6]), lanes=nc)
+    del g3
+    records, e_fin, out0, steps, ovf, _ = WK.decode_walk8(*dargs, n_chunks=nc)
+    check(not bool(ovf.any()), "the edge raster overflows walk8")
+    k8 = WK.trim_steps(int(steps), records[0].shape[1])
+    kw = dict(k8=k8, h=H, bpl=bpl, c=Cc)
+    fin = (*records, e_fin, out0)
+    meta, metb, _ = WK.finalize_records8(*fin, **kw)
+    k["finalize_records8"] = dict(ms=cuda_ms(
+        torch, lambda: WK.finalize_records8(*fin, **kw), 3), k8=k8)
+    del records, fin
+    raster = b5_checked(torch, meta, metb, n_slots)
+    k["scatter_packed16"] = dict(
+        ms=cuda_ms(torch, lambda: scatter_packed16(meta, metb, n_slots), 3),
+        bound_ms=bound(4 * meta.numel() + 4 * int((metb != 0).sum()) +
+                       2 * n_slots, 8 * meta.numel())[0])
+    del meta, metb
+    check_expand(torch, raster, img, "the edge raster's walk8 decode")
+    k["expand"] = dict(
+        ms=cuda_ms(torch, lambda: expand(raster, h=H, w=W, c=Cc), 3),
+        bound_ms=bound(3 * n_slots, 8 * n_slots)[0])
+    del raster
+    g8 = PK.walk_fix(*wargs, n_chunks=nc)
+    k["walk_fix"] = dict(ms=cuda_ms(torch, lambda: PK.walk_fix(
+        *wargs, n_chunks=nc), 3), bound_ms=walk_bound(*wargs[:2], g8, Bd,
+                                                     nc)[0],
+        passes=int(g8[6]))
+    del g8, dargs, wargs
+    torch.cuda.empty_cache()
+    zlen = int.from_bytes(pngs[0][50:54], "big")
+    line("walk_gate_edge", batch=list(img.shape),
+         raster_bytes=H * (1 + bpl), slots=H * bpl, zlib_bytes=zlen,
+         bits_per_raster_byte=8 * zlen / (H * (1 + bpl)), encode_s=enc_s,
+         paths=res, kernels=k)
 
 
 def phase_large_raster_2g(torch, T, reset, read):
@@ -1019,6 +1164,63 @@ def phase_large_raster_2g(torch, T, reset, read):
          zlib_bytes=zlen, bits_per_raster_byte=8 * zlen / raster_bytes,
          encode_s=enc_s, decode_s=dec_s, paths=paths, host_handoffs=hand,
          peak_device_gb=peak_gb, b1_bit_exact=True, launches=launches)
+
+
+def shape_image(h, w, ch):
+    """Random bytes with the top half flat, seeded by the shape (as
+    tests/test_torch_shapes.py fills its cases)."""
+    img = np.random.default_rng([h, w, ch]).integers(0, 256, (h, w, ch),
+                                                     dtype=np.uint8)
+    img[:max(1, h // 2)] = img[0, 0]
+    return img
+
+
+def phase_extreme_shapes(torch, T, reset, read):
+    """The eight shapes at 3 and 4 channels, 1-pass and 2-pass, and
+    forced-stored at 1 x 8193 x 3: encode_batch on the card byte-identical
+    to the port's CPU run, decode_batch on the card bit-exact with status 0
+    and on the path tests/test_torch_shapes.py pins for the CPU run: the
+    tall shapes on PK=1 after a walk8 overflow (walk8 holds them at 24 bpp
+    1-pass), the others on walk8, 1 x 1 and forced-stored stored."""
+    from fpng_tpu_torch.models.decoder import decode_batch
+
+    cases = [(h, w, ch, flags) for h, w in SHAPES for ch in (3, 4)
+             for flags in (0, T.FPNG_ENCODE_SLOWER)] + \
+        [(1, 8193, 3, T.FPNG_FORCE_UNCOMPRESSED)]
+    reset()
+    t = time.perf_counter()
+    taken = []
+    for h, w, ch, flags in cases:
+        what = f"{h} x {w} x {ch}, flags {flags}"
+        img = shape_image(h, w, ch)
+        png = T.encode_batch(img[None], flags, device=DEV)[0]
+        check(png == T.encode_batch(img[None], flags, device="cpu")[0],
+              f"{what}: card PNG bytes differ from the port's CPU run")
+        before = dict(decode_batch.paths)
+        sts, outs = T.decode_batch([png], ch, device=DEV)
+        check(sts == [0] and np.array_equal(outs[0], img),
+              f"{what}: status {sts} or pixels differ")
+        path = [k for k, v in decode_batch.paths.items()
+                if v > before[k]] or ["stored"]
+        if (h, w) == (1, 1) or flags == T.FPNG_FORCE_UNCOMPRESSED:
+            want = "stored"
+        elif (h, w) in TALL and (ch, flags) != (3, 0):
+            want = "pk1"
+        else:
+            want = "walk8"
+        check(path == [want] and is_stored(png) == (want == "stored"),
+              f"{what}: decoded on {path}, not {want}")
+        taken.append([h, w, ch, flags, want])
+    seconds = time.perf_counter() - t
+    launches = read()
+    check(all(launches[k] > 0 for k in (
+        "encode_bits_fused", "crc32_words_masked_raw", "demote_mask",
+        "walk_fix8", "walk_fix", "finalize_records8", "finalize_records",
+        "scatter_packed16", "expand")),
+        f"a kernel never launched on the extreme shapes: {launches}")
+    line("extreme_shapes", cases=len(cases), seconds=seconds,
+         paths=taken, launches=launches)
+    return launches
 
 
 def abs_err(torch, a, b):
@@ -1773,6 +1975,10 @@ def main():
          overflow_chain=["walk8", "pk1"],
          past_gate_chain=["chunked", "host"])
 
+    # --- walk_gate_edge, extreme_shapes: the walk gate's edge, dim 1 -------
+    phase_walk_gate_edge(torch, T, reset, read)
+    shape_launches = phase_extreme_shapes(torch, T, reset, read)
+
     # --- large_raster_2g: a raster past 2^27 bytes on the chunked decode ----
     phase_large_raster_2g(torch, T, reset, read)
 
@@ -1850,6 +2056,7 @@ def main():
         int8_mxu=probe_launches["int8_mxu"])
     line("launches", walk8_path=launches, chunked_path=chunked_launches,
          pk1_path=pk1_launches, modes=mode_launches, probes=probe_launches,
+         extreme_shapes=shape_launches,
          stream=stream_launches, bench=bench_launches, cli=cli_launches)
     print(card, flush=True)
     print(json.dumps({"kernels": [

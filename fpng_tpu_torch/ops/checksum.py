@@ -11,6 +11,10 @@ in modules that import jax); their application is torch ops on int64
 registers masked to 32 bits.  This is the plain side of kernel B2 on any
 device; the whole IDAT CRC in one launch is ops/assemble.py:idat_crc_words
 (csrc/crc_words.cu).
+
+The byte-array CRC (crc32_raw, crc32_bytes, crc32_bytes_var) is torch ops
+on whatever device its input is on, and has no kernel: fpng_tpu computes
+it in XLA, with no Pallas kernel to port.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ def adler32_bytes(data: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 _CRC_POLY = 0xEDB88320
+_CRC_CHUNK = 256
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,6 +119,16 @@ def _shift_matrix(nbytes: int) -> tuple:
         nbytes >>= 1
         t += 1
     return m
+
+
+def _shift_crc(nbytes: int, crc: int) -> int:
+    """A host register advanced through `nbytes` zero bytes."""
+    m = _shift_matrix(nbytes)
+    acc = 0
+    for b in range(32):
+        if (crc >> b) & 1:
+            acc ^= m[b]
+    return acc
 
 
 @functools.lru_cache(maxsize=None)
@@ -326,12 +341,12 @@ def crc_chunks_plain(words: torch.Tensor, lo: torch.Tensor,
     return _xor_reduce_last(acc)
 
 
-def combine_chunks(acc: torch.Tensor) -> torch.Tensor:
-    """Fold (B, K) raw 4096-byte chunk registers into one per row with a
-    log-depth shift-combine tree (odd levels get a raw-neutral zero
-    segment prepended)."""
+def combine_chunks(acc: torch.Tensor,
+                   span: int = _WCRC_CW * 4) -> torch.Tensor:
+    """Fold (B, K) raw registers of consecutive `span`-byte chunks into one
+    per row with a log-depth shift-combine tree (odd levels get a
+    raw-neutral zero segment prepended)."""
     B, Kc = acc.shape
-    span = _WCRC_CW * 4  # bytes represented by each register
     while Kc > 1:
         if Kc % 2:
             acc = torch.cat([torch.zeros_like(acc[:, :1]), acc], dim=1)
@@ -354,3 +369,55 @@ def crc32_words_masked_raw(words: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"word count {words.shape[1]} is not a multiple of "
                          f"{_WCRC_CW}")
     return combine_chunks(crc_chunks_plain(words, lo, hi))
+
+
+# ---------------------------------------------------------------------------
+# Byte-array CRC-32 (torch ops on the input's device; no kernel, see above)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _position_table_on(chunk: int, device: torch.device) -> torch.Tensor:
+    """_position_bit_table(chunk) as (chunk, 8) int64 on device, uploaded
+    once per device."""
+    return torch.from_numpy(_position_bit_table(chunk).astype(np.int64)).to(
+        device)
+
+
+def crc32_raw(data: torch.Tensor) -> torch.Tensor:
+    """Init-0 CRC register ("raw") of each row of a (B, N) byte tensor ->
+    (B,) int64.
+
+    raw() is GF(2)-linear in the message and leading zero bytes are
+    raw-neutral, so the rows are front-padded to 256-byte chunks, each
+    chunk's register is the XOR of its bits' position contributions, and
+    the chunks combine with shift matrices in a log-depth tree.
+    """
+    B, N = data.shape
+    L = _CRC_CHUNK
+    d = torch.nn.functional.pad(data.to(torch.int64), ((-N) % L, 0))
+    d = d.reshape(B, max(d.shape[1] // L, 1), L)
+    bit = _position_table_on(L, data.device)
+    acc = torch.zeros(d.shape[:2], dtype=torch.int64, device=data.device)
+    for k in range(8):
+        acc ^= _xor_reduce_last(((d >> k) & 1) * bit[:, k])
+    return combine_chunks(acc, L)
+
+
+def crc32_bytes(data: torch.Tensor) -> torch.Tensor:
+    """Standard CRC-32 of each row of a (B, N) uint8 tensor -> (B,) int64.
+
+    crc(msg) = raw(msg) ^ shift_N(0xFFFFFFFF) ^ 0xFFFFFFFF.
+    """
+    init = _shift_crc(data.shape[1], 0xFFFFFFFF)
+    return crc32_raw(data) ^ init ^ 0xFFFFFFFF
+
+
+def crc32_bytes_var(data: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """CRC-32 of data[b, :lens[b]] for each row -> (B,) int64.  Bytes at
+    idx >= lens[b] MUST already be zero (the caller masks them): with
+    trailing zeros raw(msg || 0^k) = shift_k(raw(msg)), so each register
+    is unshifted through its k = N - lens[b] zero bytes."""
+    N = data.shape[1]
+    raw = crc32_raw(data) ^ _shift_crc(N, 0xFFFFFFFF)
+    return crc32_var_unshift(raw, N - lens.to(torch.int64), N) ^ 0xFFFFFFFF

@@ -67,12 +67,15 @@ def fits(h: int, bpl: int) -> bool:
     """The walk path's raster gate: fpng_tpu's walk gate counted on the
     rows that fpng_tpu allocates (ROADMAP A12), H8 * bpl_pad < 2^27 with
     H8 = ceil(h/8)*8 and rows of 256 slots or more padded to a multiple of
-    256.  The port's own raster is unpadded, and its kernels need only
-    h * (bpl + 1) < 2^30 (B4's int32 output offsets).  The tighter gate
-    stays until a card run holds a larger raster (A12): past it the port
-    has run nothing on a walk, and the chunked decode that takes those
-    rasters stops at 2^27 slots too.  The decode dispatch and the walk
-    finalizes (B4, B9) all take it from here."""
+    256.  It leaves out fpng_tpu's VMEM cap of 28.3M slots, a TPU limit.
+    The port's own raster is unpadded, and its kernels need only
+    h * (bpl + 1) < 2^30 (B4's int32 output offsets).  The card has held
+    the raster at this gate's edge, 5824 x 7680 x 3 (134.2M slots), on
+    walk8 and on PK=1, bit-exact against the chunked decode
+    (chip_smoke.py's walk_gate_edge); past the gate the port has walked
+    nothing, and the chunked decode takes those rasters up to 2^31 bytes.
+    The decode dispatch and the walk finalizes (B4, B9) all take it from
+    here."""
     bpl_pad = bpl if bpl < 256 else -(-bpl // 256) * 256
     return -(-h // 8) * 8 * bpl_pad < 1 << 27
 

@@ -7,11 +7,14 @@ payload inside the first chunk, no prefix, per-image prefixes) must equal
 the JAX functions (Pallas kernels in interpret mode) and zlib bit for bit.
 A numpy twin of kernel B2's arithmetic (each chunk register shifted by the
 zero bytes after it with the 2^t-byte tables, XORed, then the finish with
-the same tables) is held against the plain version and zlib.
+the same tables) is held against the plain version and zlib.  The
+byte-array CRC (crc32_raw, crc32_bytes, crc32_bytes_var: torch ops, no
+kernel) is held against fpng_tpu's jitted functions and zlib.
 """
 
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +35,37 @@ def test_adler32_matches_zlib_and_jax(n):
     assert [int(g) for g in got] == [zlib.adler32(r.tobytes()) for r in data]
     assert np.array_equal(got, np.asarray(JC.adler32_bytes(
         jnp.asarray(data))).astype(np.int64))
+
+
+@pytest.mark.parametrize("n", [1, 7, 255, 256, 257, 1024, 4096, 70001])
+def test_crc32_bytes_matches_zlib_and_jax(n):
+    rng = np.random.default_rng(n)
+    data = rng.integers(0, 256, (3, n), dtype=np.uint8)
+    data[1] = 0  # leading zeros are raw-neutral, trailing ones are not
+    t = torch.from_numpy(data)
+    raw = TC.crc32_raw(t)
+    assert np.array_equal(raw.numpy(), np.asarray(jax.jit(JC.crc32_raw)(
+        jnp.asarray(data))).astype(np.int64))
+    got = TC.crc32_bytes(t)
+    assert [int(g) for g in got] == [zlib.crc32(r.tobytes()) for r in data]
+    assert np.array_equal(got.numpy(), np.asarray(jax.jit(JC.crc32_bytes)(
+        jnp.asarray(data))).astype(np.int64))
+    assert TC._shift_crc(n, 0xFFFFFFFF) == JC._shift_crc(n, 0xFFFFFFFF)
+    assert TC._CRC_CHUNK == JC._CRC_CHUNK
+
+
+@pytest.mark.parametrize("n", [1, 256, 257, 4096, 70001])
+def test_crc32_bytes_var_matches_zlib_and_jax(n):
+    """Ragged lengths, 0 and N among them, the tails zeroed."""
+    rng = np.random.default_rng(n + 1)
+    lens = np.array([0, n, *rng.integers(0, n + 1, 3), n // 2], np.int32)
+    data = rng.integers(0, 256, (len(lens), n), dtype=np.uint8)
+    data[np.arange(n)[None, :] >= lens[:, None]] = 0
+    got = TC.crc32_bytes_var(torch.from_numpy(data), torch.from_numpy(lens))
+    assert [int(g) for g in got] == [zlib.crc32(r[:k].tobytes())
+                                     for r, k in zip(data, lens)]
+    want = jax.jit(JC.crc32_bytes_var)(jnp.asarray(data), jnp.asarray(lens))
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.int64))
 
 
 def _words(rng, B, NW):

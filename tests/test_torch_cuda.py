@@ -16,13 +16,15 @@ import torch
 
 import fpng_tpu_torch as T
 from fpng_tpu_torch import golden
-from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
+from fpng_tpu_torch.models.decoder import (_parse_one, decode_batch,
+                                           pack_streams)
 from fpng_tpu_torch.models.encoder import (_budget, _num_words, build_desc,
                                            tokens)
 from fpng_tpu_torch.ops import specdec_tpu as PK
 from fpng_tpu_torch.ops import walk8 as W
 from fpng_tpu_torch.ops.assemble import (idat_crc_words, idat_crc_words_plain,
                                          raw_idat_prefix)
+from fpng_tpu_torch.ops import checksum as TC
 from fpng_tpu_torch.ops.bitpack import (deposit_bits, scatter_bits,
                                         scatter_packed16,
                                         scatter_packed16_plain)
@@ -689,3 +691,48 @@ def test_dryrun_multichip_on_every_card():
     graft_entry.dryrun_multichip(torch.cuda.device_count(), device="cuda")
     fn, args = graft_entry.entry()
     assert fn(*args)[4].shape == (2, 288)
+
+
+@pytest.mark.parametrize("n", [1, 257, 4096, 70001, 1 << 20])
+def test_crc32_bytes_on_card_matches_zlib(n):
+    """The byte-array CRC (torch ops, no kernel) on CUDA tensors: every
+    row, and ragged lengths (0 and n among them) with the tails zeroed."""
+    rng = np.random.default_rng(n)
+    lens = np.array([0, n, *rng.integers(0, n + 1, 2)], np.int32)
+    data = rng.integers(0, 256, (len(lens), n), dtype=np.uint8)
+    got = TC.crc32_bytes(torch.from_numpy(data).cuda())
+    assert got.is_cuda
+    assert [int(g) for g in got] == [zlib.crc32(r.tobytes()) for r in data]
+    data[np.arange(n)[None, :] >= lens[:, None]] = 0
+    got = TC.crc32_bytes_var(torch.from_numpy(data).cuda(),
+                             torch.from_numpy(lens).cuda())
+    assert [int(g) for g in got] == [zlib.crc32(r[:k].tobytes())
+                                     for r, k in zip(data, lens)]
+
+
+SHAPES = [  # tests/test_fuzz_shapes.py's
+    (1, 1), (1, 8193), (8193, 1), (2, 4097), (4096, 2), (3, 2731),
+    (1, 257), (513, 1),
+]
+SHAPE_CASES = [(h, w, ch, flags) for h, w in SHAPES for ch in (3, 4)
+               for flags in (0, T.FPNG_ENCODE_SLOWER)] + \
+    [(1, 8193, 3, T.FPNG_FORCE_UNCOMPRESSED)]
+
+
+@pytest.mark.parametrize("h,w,ch,flags", SHAPE_CASES)
+def test_extreme_shape_on_card_matches_cpu(h, w, ch, flags, monkeypatch):
+    """tests/test_torch_shapes.py's cases on the card: the PNG bytes equal
+    the CPU run's, and the card decodes them on the CPU run's path."""
+    img = np.random.default_rng([h, w, ch]).integers(0, 256, (h, w, ch),
+                                                     dtype=np.uint8)
+    img[:max(1, h // 2)] = img[0, 0]
+    png = T.encode_batch(img[None], flags, device="cuda")[0]
+    assert png == T.encode_batch(img[None], flags, device="cpu")[0]
+    paths = []
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setattr(decode_batch, "paths",
+                            {"walk8": 0, "pk1": 0, "chunked": 0})
+        sts, outs = T.decode_batch([png], ch, device=dev)
+        assert sts == [0] and np.array_equal(outs[0], img), dev
+        paths.append(dict(decode_batch.paths))
+    assert paths[0] == paths[1]

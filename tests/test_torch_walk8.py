@@ -423,10 +423,12 @@ def test_raster_past_the_gate_takes_the_chunked_decode(walk8, monkeypatch):
 
 @pytest.mark.parametrize("h,w,c,fits", [
     (2160, 3840, 3, True), (8184, 4096, 4, True), (8189, 4096, 4, False),
-    (1, 1, 3, True), (9000, 4000, 4, False)])
+    (1, 1, 3, True), (9000, 4000, 4, False), (5824, 7680, 3, True),
+    (5832, 7680, 3, False)])
 def test_walk8_gate_counts_allocated_rows(h, w, c, fits):
     """8189 rows of 16384 slots fit in 2^27, but their 8192 allocated
-    rows do not."""
+    rows do not.  5824 x 7680 x 3 is the tallest 4K-wide raster the gate
+    admits (chip_smoke.py's walk_gate_edge phase)."""
     assert TW.fits(h, w * c) == fits
 
 
