@@ -40,8 +40,9 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      1 x 5824 x 7680 x 3 (134.2 M slots), on walk8, on PK=1
      (FPNG_TPU_WALK8=0) and on the chunked decode (the gate patched to
      refuse), each bit-exact against the input, zlib and the chunked
-     output, with B3, B4, B5, B6 and B8 timed on its streams and each
-     path's peak device memory;
+     output, with B3, B4, B5, B6 and B8 timed on its streams, each path's
+     peak device memory, and the walk8 and PK=1 decodes' peaks stage by
+     stage (walk, epilogue, finalize, B5, B6);
   extreme_shapes: tests/test_fuzz_shapes.py's eight shapes (dim 1, extreme
      aspect ratios) at 3 and 4 channels in 1-pass and 2-pass, and
      forced-stored at 1 x 8193 x 3: the card's PNG bytes equal the port's
@@ -49,7 +50,13 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      tall shapes on PK=1);
   large_raster_2g: encodes one 1 x 6144 x 7680 x 3 raster (141.6 M bytes,
      past 2^27) and decodes it on the chunked decode (B1 held against its
-     plain version on its stream);
+     plain version on its stream), with the encode's and the decode's peak
+     device memory;
+  memory_plan: decodes groups too large for one walk decode on the card,
+     bit-exact: twelve edge rasters on PK=1 (FPNG_TPU_WALK8=0) in two or
+     more sub-batches, and 2160 x 3840 x 4 1-pass frames (over 200 MB of
+     zlib) through walk8 -> PK=1, each walk decode's modelled bytes
+     (ops/walk8.decode_bytes) between 1 and 1.5 times its measured peak;
   7. decodes corrupted streams against golden's statuses;
   probes: holds the probe kernels P1 (tools/prof_depparts, all seven
      modes) and P2 (tools/prof_int8mxu, int8 and bf16), each in every one
@@ -243,7 +250,9 @@ def zlib_check(png, img):
     raw = zlib.decompress(png[58:58 + idat_len])
     rows = np.frombuffer(raw, np.uint8).reshape(H, 1 + W * Cc)
     if rows[0, 0] == 0 and (rows[1:, 0] == 2).all():
-        rec = np.cumsum(rows[:, 1:].astype(np.int64), axis=0).astype(np.uint8)
+        rec = rows[:, 1:].copy()
+        for i in range(1, H):  # row by row: a running sum down each column
+            np.add(rec[i], rec[i - 1], out=rec[i])  # wraps mod 256
     else:  # stored fallback: every row filter 0
         check((rows[:, 0] == 0).all(), "filter bytes")
         rec = rows[:, 1:]
@@ -1016,7 +1025,9 @@ def phase_walk_gate_edge(torch, T, reset, read):
     on walk8, on PK=1 (FPNG_TPU_WALK8=0) and on the chunked decode (the
     gate patched to refuse), each bit-exact against the input and the zlib
     check, the walks' output against the chunked one, each path through
-    its kernels with no host hand-off; then B3, B4, B5, B6 and B8 timed on
+    its kernels with no host hand-off; then the walk8 and PK=1 decodes
+    stage by stage with each stage's peak device bytes
+    (tools/decode_memory.stage_peaks), and B3, B4, B5, B6 and B8 timed on
     the raster's streams (B5 and B6 held against their plain versions)."""
     from fpng_tpu_torch.models import decoder as TD
     from fpng_tpu_torch.models.decoder import decode_batch
@@ -1024,6 +1035,7 @@ def phase_walk_gate_edge(torch, T, reset, read):
     from fpng_tpu_torch.ops import walk8 as WK
     from fpng_tpu_torch.ops.bitpack import scatter_packed16
     from fpng_tpu_torch.ops.expand import expand
+    from fpng_tpu_torch.tools import decode_memory as DM
 
     H, W = EDGE
     img = make_large_raster(H, W, noise=False)
@@ -1033,7 +1045,10 @@ def phase_walk_gate_edge(torch, T, reset, read):
     check(WK.fits(H, bpl) and not WK.fits(H + 8, bpl),
           f"{H} x {bpl} is not the walk gate's edge")
     reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     pngs, enc_s = timed(lambda: T.encode_batch(img, device=DEV))
+    enc_peak = torch.cuda.max_memory_allocated()
     enc_launches = {k: v for k, v in read().items() if v}
     check(enc_launches == {"encode_bits_fused": 1,
                            "crc32_words_masked_raw": 1},
@@ -1088,6 +1103,12 @@ def phase_walk_gate_edge(torch, T, reset, read):
     # the kernels at this raster, on its own streams
     Bd, dargs, wargs, nc = pack_batch(torch, pngs)
     n_slots = H * bpl
+    for path in ("walk8", "pk1"):
+        got, res[path]["stages"] = DM.stage_peaks(torch, dargs, nc, H, W, Cc,
+                                                  path)
+        check(np.array_equal(got[0].cpu().numpy(), img[0]),
+              f"edge raster's {path} stages: pixels differ")
+        del got
     k = {}
     g3 = WK.walk_fix8(*wargs, n_chunks=nc)
     k["walk_fix8"] = dict(ms=cuda_ms(torch, lambda: WK.walk_fix8(
@@ -1126,7 +1147,7 @@ def phase_walk_gate_edge(torch, T, reset, read):
     line("walk_gate_edge", batch=list(img.shape),
          raster_bytes=H * (1 + bpl), slots=H * bpl, zlib_bytes=zlen,
          bits_per_raster_byte=8 * zlen / (H * (1 + bpl)), encode_s=enc_s,
-         paths=res, kernels=k)
+         encode_peak_device_gb=enc_peak / 1e9, paths=res, kernels=k)
 
 
 def phase_large_raster_2g(torch, T, reset, read):
@@ -1141,10 +1162,15 @@ def phase_large_raster_2g(torch, T, reset, read):
     raster_bytes = H * (1 + W_ * Cc)
     check(raster_bytes >= 1 << 27 and not fits(H, W_ * Cc),
           "the large raster is not past 2^27 bytes and the walk gate")
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
     pngs, enc_s = timed(lambda: T.encode_batch(img, device=DEV))
+    enc_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     (sts, outs), dec_s = timed(lambda: T.decode_batch(pngs, Cc, device=DEV))
+    dec_peak = torch.cuda.max_memory_allocated()
     launches = read()
     paths, hand = dict(decode_batch.paths), decode_batch.host_handoffs
     check(not is_stored(pngs[0]), "the large raster was stored")
@@ -1156,14 +1182,111 @@ def phase_large_raster_2g(torch, T, reset, read):
           launches["crc32_words_masked_raw"] == 1 and
           launches["encode_bits_fused"] == 1, f"large raster "
           f"launches {launches}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(zlib_check(pngs[0], img[0]), "large raster zlib check")
     b1_checked(torch, b1_inputs(torch, img), "large_raster_2g")
     zlen = int.from_bytes(pngs[0][50:54], "big")
     line("large_raster_2g", batch=list(img.shape), raster_bytes=raster_bytes,
          zlib_bytes=zlen, bits_per_raster_byte=8 * zlen / raster_bytes,
          encode_s=enc_s, decode_s=dec_s, paths=paths, host_handoffs=hand,
-         peak_device_gb=peak_gb, b1_bit_exact=True, launches=launches)
+         encode_peak_device_gb=enc_peak / 1e9,
+         decode_peak_device_gb=dec_peak / 1e9, b1_bit_exact=True,
+         launches=launches)
+
+
+def model_lines(case, calls, h, bpl):
+    """A line a walk tier of a memory_plan case: each of its decodes'
+    bytes by ops/walk8.decode_bytes beside its measured peak
+    (tools/decode_memory.traced_calls), each model at least the peak and at
+    most 1.5 times it."""
+    from fpng_tpu_torch.ops import specdec_tpu as PK
+    from fpng_tpu_torch.ops import walk8 as WK
+
+    for tier, ST in (("walk8", 8 * WK.MAXIT), ("pk1", PK.ST8)):
+        rows = []
+        for c in calls:
+            if c["tier"] != tier:
+                continue
+            model = WK.decode_bytes(c["images"], c["lanes"], ST, h, bpl,
+                                    finish=c["finished"])
+            ratio = model / c["peak"]
+            check(1.0 <= ratio <= 1.5, f"memory_plan case {case}, {tier}: "
+                  f"model {model} B against a peak of {c['peak']} B")
+            rows.append(dict(images=c["images"], lanes=c["lanes"],
+                             finished=c["finished"], model_bytes=model,
+                             peak_bytes=c["peak"], ratio=ratio))
+        if rows:
+            line("memory_model", case=case, tier=tier, decodes=rows)
+
+
+def phase_memory_plan(torch, T, reset, read):
+    """Groups past what one walk decode can hold on the card, through
+    decode_batch, each image bit-exact against its input and the zlib
+    check (tools/decode_memory's cases):
+      A: twelve 1 x 5824 x 7680 x 3 edge rasters on PK=1 (FPNG_TPU_WALK8=0),
+         about 100 GB unsplit: at least two sub-batches, the peak under the
+         card's memory;
+      B: 2160 x 3840 x 4 frames of 1-pass mosaics, over 200 MB of zlib,
+         walk8 -> PK=1: one walk8 overflow per sub-batch that overflowed.
+    No host hand-off; each decode's modelled bytes against its peak
+    (model_lines)."""
+    from fpng_tpu_torch.models.decoder import decode_batch
+    from fpng_tpu_torch.tools import decode_memory as DM
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    for case, make in (("a", DM.case_a), ("b", DM.case_b)):
+        t0 = time.perf_counter()
+        imgs, pngs = make(DEV)
+        h, w, c = imgs[0].shape
+        zlib_bytes = sum(map(DM._zlib_len, pngs))
+        check(not any(map(is_stored, pngs)) and
+              all(zlib_check(p, i) for p, i in zip(pngs, imgs)),
+              f"memory_plan case {case}: a file is stored or fails zlib")
+        check(case == "a" or zlib_bytes > DM.CASE_B_ZLIB,
+              f"memory_plan case b: {zlib_bytes} bytes of zlib")
+        if case == "a":
+            os.environ["FPNG_TPU_WALK8"] = "0"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        reset()
+        try:
+            with DM.traced_calls(torch) as calls:
+                (sts, outs), dec_s = timed(lambda: T.decode_batch(
+                    pngs, c, device=DEV))
+        finally:
+            os.environ.pop("FPNG_TPU_WALK8", None)
+        top = max([k["top"] for k in calls] +
+                  [torch.cuda.max_memory_allocated()])
+        launches = read()
+        sub, ovf = decode_batch.sub_batches, decode_batch.walk8_overflows
+        walk8 = [k for k in calls if k["tier"] == "walk8"]
+        pk1 = [k for k in calls if k["tier"] == "pk1"]
+        check(sts == [0] * len(imgs) and all(
+            np.array_equal(o, i) for o, i in zip(outs, imgs)),
+            f"memory_plan case {case}: statuses {sts} or pixels differ")
+        check(top < total, f"memory_plan case {case}: peak {top} B")
+        check(decode_batch.host_handoffs == 0 and
+              decode_batch.paths == {"walk8": 0, "pk1": 1, "chunked": 0},
+              f"memory_plan case {case}: paths {decode_batch.paths}")
+        check(launches["walk_fix8"] == len(walk8) and
+              launches["walk_fix"] == launches["finalize_records"] ==
+              len(pk1), f"memory_plan case {case}: launches {launches}")
+        if case == "a":
+            check(sub >= 2 and not walk8 and len(pk1) == sub,
+                  f"memory_plan case a: {sub} sub-batches, {calls}")
+        else:
+            check(sub == len(walk8) and ovf >= 1 and
+                  ovf == sum(not k["finished"] for k in walk8) ==
+                  len(pk1), f"memory_plan case b: {sub} sub-batches, "
+                  f"{ovf} walk8 overflows, {calls}")
+        line("memory_plan", case=case, batch=[len(imgs), h, w, c],
+             zlib_bytes=zlib_bytes, decode_s=dec_s, sub_batches=sub,
+             sub_batch_images=[k["images"] for k in pk1],
+             walk8_overflows=ovf, start_bytes=start, peak_bytes=top,
+             card_bytes=total, seconds=time.perf_counter() - t0)
+        model_lines(case, calls, h, w * c)
+        del imgs, pngs, sts, outs
+        torch.cuda.empty_cache()
 
 
 def shape_image(h, w, ch):
@@ -1711,7 +1834,7 @@ def main():
             f.launches = 0
         walk_fix8.passes = walk_fix.passes = 0
         decode_batch.device_images = decode_batch.host_handoffs = 0
-        decode_batch.walk8_overflows = 0
+        decode_batch.walk8_overflows = decode_batch.sub_batches = 0
         decode_batch.paths = {"walk8": 0, "pk1": 0, "chunked": 0}
 
     def read():
@@ -1981,6 +2104,9 @@ def main():
 
     # --- large_raster_2g: a raster past 2^27 bytes on the chunked decode ----
     phase_large_raster_2g(torch, T, reset, read)
+
+    # --- memory_plan: groups past one walk decode's card memory ------------
+    phase_memory_plan(torch, T, reset, read)
 
     # --- 7. corrupted streams -----------------------------------------------
     rng = np.random.default_rng(11)

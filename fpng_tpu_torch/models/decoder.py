@@ -16,16 +16,22 @@ everything O(pixels).  dispatch_kernel is fpng_tpu's chain without its
     -> host decoder (golden.decode_zlib)         per image, when the chunked
                                                  walk's step bound overflows
 
+Within the gate a group too large for the card's free memory is split
+into sub-batches by a memory plan (dispatch_kernel), each decoded on the
+chain above: that plan replaces what fpng_tpu's `except` gives its users.
+
 Any constraint violation flips the image's ok flag and the API reports
 FPNG_DECODE_NOT_FPNG, as the reference does.  Stored-block files decode on
 the host (fpng.cpp:2107-2207).  decode_batch counts images decoded on the
 device (`device_images`), images handed to the host decoder
-(`host_handoffs`, only from the chunked tier), device batches whose walk8
-overflowed (`walk8_overflows`) and device batches by the path that decoded
-them (`paths`).  Setting `decode_batch.spans` to a dict turns on per-stage
-host-clock spans (off by default; see _span).  A kernel that fails to
-build or launch raises.  decode_batch_stream pipelines batches: batch k+1
-is launched before batch k's readback is waited for.
+(`host_handoffs`, only from the chunked tier), device decodes launched
+(`sub_batches`: one a group, or one a sub-batch of a split group),
+sub-batches whose walk8 overflowed (`walk8_overflows`) and groups by the
+furthest path that decoded them (`paths`).  Setting `decode_batch.spans`
+to a dict turns on per-stage host-clock spans (off by default; see
+_span).  A kernel that fails to build or launch raises.
+decode_batch_stream pipelines batches: batch k+1 is launched before batch
+k's readback is waited for.
 """
 
 from __future__ import annotations
@@ -39,8 +45,8 @@ import torch
 
 from .. import constants as C
 from ..ops.specdec import decode_kernel, pack_lut, plan_chunks
-from ..ops.specdec_tpu import decode_kernel_pk1
-from ..ops.walk8 import decode_kernel8, fits
+from ..ops.specdec_tpu import ST8, decode_kernel_pk1
+from ..ops.walk8 import decode_bytes, decode_kernel8, fits, n_chunks
 from .transfer import finish_readback, start_readback, to_device
 
 
@@ -139,6 +145,7 @@ def decode_batch(pngs: list[bytes], desired_channels: int = 4,
 decode_batch.device_images = 0
 decode_batch.host_handoffs = 0
 decode_batch.walk8_overflows = 0
+decode_batch.sub_batches = 0
 decode_batch.paths = {"walk8": 0, "pk1": 0, "chunked": 0}
 decode_batch.spans = None
 
@@ -169,31 +176,97 @@ def _use_walk8() -> bool:
     return os.environ.get("FPNG_TPU_WALK8", "1") != "0"
 
 
-def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
+# bytes of the card kept out of the walk decode's budget: room for the
+# caching allocator's fragmentation and for memory outside it
+_MARGIN = 2 << 30
+
+
+def _free_bytes(device):
+    """The walk decode's budget on `device`: the card's free memory plus
+    what torch's caching allocator holds unused, less _MARGIN; None off
+    the card (no split).  Read at launch, so whatever is already on the
+    card (a batch in flight, a mesh shard's neighbours) is counted."""
+    if device.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - \
+        torch.cuda.memory_allocated(device) - _MARGIN
+
+
+def plan_sub_batches(B: int, nbytes, budget, out_bytes: int):
+    """Contiguous [start, stop) sub-batches of B images: one when budget
+    is None or nbytes(B) fits it; otherwise as many images a sub-batch as
+    nbytes(b) allows beside the whole (B x out_bytes) output that the
+    sub-batches fill, and never fewer than one."""
+    if budget is None or nbytes(B) <= budget:
+        return [(0, B)]
+    room = budget - B * out_bytes
+    b = 1
+    while b < B and nbytes(b + 1) <= room:
+        b += 1
+    return [(i, min(i + b, B)) for i in range(0, B, b)]
+
+
+def _walk_chain(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
+    """One sub-batch through walk8, then PK=1 on an overflow (or PK=1
+    straight away with FPNG_TPU_WALK8=0): (imgs, ok, path)."""
+    decode_batch.sub_batches += 1
+    if _use_walk8():
+        out = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
+                             zlib_len_max=zmax)
+        if out is not None:
+            return (*out, "walk8")
+        decode_batch.walk8_overflows += 1
+    return (*decode_kernel_pk1(sj, lj, pj, zj, h=h, w=w, c=c,
+                               zlib_len_max=zmax), "pk1")
+
+
+def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int,
+                    mem_budget=None):
     """The decode dispatch - walk8 -> PK=1 within the walk gate, the
     chunked decode past it - over already-packed device inputs
     (pack_streams), zmax the longest zlib_len.
 
-    Returns (imgs, ok, overflow, path) where path names the decode that
-    ran ("walk8", "pk1" or "chunked") and overflow flags the images the
-    chunked walk could not finish (the caller decodes them on the host).
+    Within the gate the memory plan stands in for fpng_tpu's `except`
+    around its walks: before anything launches, the batch is split into
+    contiguous sub-batches (plan_sub_batches) whose PK=1 decode
+    (ops/walk8.decode_bytes at ST8 rows, the larger tier, since a walk8
+    overflow re-walks the same sub-batch on PK=1) fits the budget:
+    mem_budget bytes, or by default the card's free memory at launch
+    (_free_bytes; no split on the CPU).  A sub-batch of one image launches
+    whatever its model says (decode_bytes says why it fits the card).  Each
+    sub-batch runs the chain; their outputs are joined in image order.
+    Nothing catches a failed launch.  The chunked decode is not split, as
+    fpng_tpu has no degrade around it.
+
+    Returns (imgs, ok, overflow, path) where path names the furthest
+    decode that ran ("walk8", "pk1" or "chunked") and overflow flags the
+    images the chunked walk could not finish (the caller decodes them on
+    the host).
     """
-    if fits(h, w * c):
-        if _use_walk8():
-            out = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
-                                 zlib_len_max=zmax)
-            if out is not None:
-                imgs, ok = out
-                return imgs, ok, torch.zeros_like(ok), "walk8"
-            decode_batch.walk8_overflows += 1
-        imgs, ok = decode_kernel_pk1(sj, lj, pj, zj, h=h, w=w, c=c,
-                                     zlib_len_max=zmax)
-        return imgs, ok, torch.zeros_like(ok), "pk1"
-    s_bits, n_chunks, max_steps = plan_chunks(sj.shape[1])
-    imgs, ok, overflow = decode_kernel(
-        sj, lj, pj, zj, h=h, w=w, c=c, n_chunks=n_chunks,
-        chunk_bits=s_bits, max_steps=max_steps)
-    return imgs, ok, overflow, "chunked"
+    if not fits(h, w * c):
+        decode_batch.sub_batches += 1
+        s_bits, lanes, max_steps = plan_chunks(sj.shape[1])
+        imgs, ok, overflow = decode_kernel(
+            sj, lj, pj, zj, h=h, w=w, c=c, n_chunks=lanes,
+            chunk_bits=s_bits, max_steps=max_steps)
+        return imgs, ok, overflow, "chunked"
+    B, nc, bpl = sj.shape[0], n_chunks(zmax), w * c
+    budget = _free_bytes(sj.device) if mem_budget is None else mem_budget
+    parts = plan_sub_batches(
+        B, lambda b: decode_bytes(b, nc, ST8, h, bpl), budget, h * bpl)
+    kw = dict(h=h, w=w, c=c, zmax=zmax)
+    if len(parts) == 1:
+        imgs, ok, path = _walk_chain(sj, lj, pj, zj, **kw)
+        return imgs, ok, torch.zeros_like(ok), path
+    imgs = torch.empty((B, h, w, c), dtype=torch.uint8, device=sj.device)
+    ok = torch.empty(B, dtype=torch.bool, device=sj.device)
+    path = "walk8"
+    for a, b in parts:
+        imgs[a:b], ok[a:b], sub = _walk_chain(sj[a:b], lj[a:b], pj[a:b],
+                                              zj[a:b], **kw)
+        path = "pk1" if sub == "pk1" else path
+    return imgs, ok, torch.zeros_like(ok), path
 
 
 def _decode_launch(pngs: list[bytes], desired_channels: int, device):

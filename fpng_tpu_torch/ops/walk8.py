@@ -55,12 +55,15 @@ import torch
 
 from .. import kernels as K
 from .bitpack import MASK32, scatter_packed16
-from .expand import expand
+from .expand import _scratch_bytes, expand, tiling
 
 S = 512           # chunk bits
 MAXIT = 12        # step slots per lane: ST = 8 * maxit (as fpng_tpu's)
 _MEMB = 32        # fixpoint membership window, in steps (as fpng_tpu's)
 INF = 0x7FFFFFFF
+# record rows the epilogue reads at a time: two slabs on walk8, whose
+# temporaries (337 B a lane) stay under one 96-row int32 array (384)
+_EPI_ROWS = 48
 
 
 def fits(h: int, bpl: int) -> bool:
@@ -75,7 +78,10 @@ def fits(h: int, bpl: int) -> bool:
     (chip_smoke.py's walk_gate_edge); past the gate the port has walked
     nothing, and the chunked decode takes those rasters up to 2^31 bytes.
     The decode dispatch and the walk finalizes (B4, B9) all take it from
-    here."""
+    here.  The gate bounds one image; a walked group too large for the
+    card's free memory is split into sub-batches by the memory plan
+    (models/decoder.dispatch_kernel, decode_bytes), and one image at this
+    gate's edge always fits the card (decode_bytes says why)."""
     bpl_pad = bpl if bpl < 256 else -(-bpl // 256) * 256
     return -(-h // 8) * 8 * bpl_pad < 1 << 27
 
@@ -320,31 +326,75 @@ def decode_walk8(stream, lut, p0, zlib_len, *, n_chunks: int,
 def walk_offsets(walk, stream, lut, p0, zlib_len, *, n_chunks: int):
     """decode_walk8's contract with the walk `walk` (walk_fix8, or the
     PK=1 walk of ops/specdec_tpu.py): the walk, then the epilogue in torch
-    ops on either device."""
-    dev = stream.device
+    ops on either device (_lane_sums; only the prefix sum across lanes is
+    int64)."""
     zl8 = zlib_len.to(torch.int64) * 8
     i32 = torch.int32
     e_fin, nst, ovf_l, posr, raw0, raw1, passes = walk(
         stream_words(stream), lut.to(i32).contiguous(), p0.to(i32),
         zl8.to(i32), n_chunks=n_chunks)
-    ST = posr.shape[1]
-    _, live, _ = _lane_geometry(zl8, n_chunks)
-    stepi = torch.arange(ST, dtype=i32, device=dev)[None, :, None]
-    e3 = e_fin[:, None]
-    recb = ((raw0 >> 9) & 1).bool() & live[:, None] & (stepi < nst[:, None])
-    clen = (raw0 >> 19) & 15
-    validr = recb & (posr >= e3)
-    dem = recb & (raw1 != 0) & (posr < e3) & (posr + clen == e3)
-    outl = ((raw0 >> 10) & 511).to(torch.int64)
-    outb = (torch.where(validr, outl, 0) +
-            torch.where(dem, outl - 1, 0)).sum(dim=1)
-    outb = torch.where(live, outb, 0)
+    live = _lane_geometry(zl8, n_chunks)[1]
+    outb, last = _lane_sums(posr, raw0, raw1, nst, e_fin)
+    outb *= live
+    last *= live
     # int64 sum, clamped: every offset past 2^30 lies past any raster the
     # walk path takes, and the clamp keeps B4's int32 carries from wrapping
-    out0 = torch.clamp(torch.cumsum(outb, dim=1) - outb, max=1 << 30)
-    steps = torch.where(validr | dem, stepi + 1, 0).amax()
+    out0 = torch.clamp(torch.cumsum(outb, dim=1, dtype=torch.int64) - outb,
+                       max=1 << 30)
     ovf = (ovf_l & live).any(dim=1)
-    return (posr, raw0, raw1, nst), e_fin, out0.to(i32), steps, ovf, passes
+    return (posr, raw0, raw1, nst), e_fin, out0.to(i32), last.amax(), ovf, \
+        passes
+
+
+def _lane_sums(posr, raw0, raw1, nst, e_fin):
+    """Each lane's output bytes past its converged entry and its last kept
+    step, (B, NC) int32 each (at most 536 rows of outlen <= 511: under
+    2^19), from the (B, ST, NC) records read _EPI_ROWS rows at a time.
+    Its temporaries - one int32 and three bool slabs of _EPI_ROWS rows and
+    one int32 lane array - are allocated once, written in place and freed
+    on return (decode_bytes counts them)."""
+    B, ST, NC = posr.shape
+    dev, i32 = posr.device, torch.int32
+    e3, n3 = e_fin[:, None], nst[:, None]
+    step1 = torch.arange(1, ST + 1, dtype=i32, device=dev)[:, None]
+    outb = torch.zeros((B, NC), dtype=i32, device=dev)
+    last = torch.zeros_like(outb)
+    part = torch.empty_like(outb)
+    R = min(_EPI_ROWS, ST)
+    x = torch.empty((B, R, NC), dtype=i32, device=dev)
+    keep, ge, t = (torch.empty((B, R, NC), dtype=torch.bool, device=dev)
+                   for _ in range(3))
+    for j in range(0, ST, R):
+        r = min(R, ST - j)
+        p, r0, step = posr[:, j:j + r], raw0[:, j:j + r], step1[j:j + r]
+        xs, ks, gs, ts = x[:, :r], keep[:, :r], ge[:, :r], t[:, :r]
+        # keep: a token the lane recorded (bit 9, a step below nst) at or
+        # past its converged entry, or a literal pair whose second literal
+        # starts at the entry (dem: it outputs one byte less)
+        torch.bitwise_right_shift(r0, 19, out=xs)
+        xs &= 15
+        xs += p
+        torch.eq(xs, e3, out=ks)
+        torch.ne(raw1[:, j:j + r], 0, out=ts)
+        ks &= ts
+        torch.ge(p, e3, out=gs)
+        ks |= gs
+        torch.bitwise_and(r0, 512, out=xs)
+        torch.ne(xs, 0, out=ts)
+        ks &= ts
+        torch.le(step, n3, out=ts)
+        ks &= ts
+        torch.bitwise_right_shift(r0, 10, out=xs)
+        xs &= 511
+        xs *= ks
+        outb += torch.sum(xs, dim=1, dtype=i32, out=part)
+        gs.logical_not_()
+        gs &= ks
+        xs.copy_(gs)
+        outb -= torch.sum(xs, dim=1, dtype=i32, out=part)
+        torch.mul(ks, step, out=xs)
+        torch.maximum(last, torch.amax(xs, dim=1, out=part), out=last)
+    return outb, last
 
 
 def trim_steps(steps: int, ST: int) -> int:
@@ -506,6 +556,59 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
     k8 = trim_steps(int(diag[0]), records[0].shape[1])
     return finish_decode(finalize_records8, records, e_fin, out0, zlib_len,
                          k8=k8, h=h, w=w, c=c)
+
+
+def _block(n: int) -> int:
+    """The bytes torch's caching allocator counts for a buffer of n bytes:
+    n rounded up to 512, and a buffer past 1 MiB may take a cached block
+    up to 1 MiB longer, which the allocator does not split."""
+    return -(-n // 512) * 512 + (1 << 20 if n > 1 << 20 else 0)
+
+
+def decode_bytes(B: int, NC: int, ST: int, h: int, bpl: int, *,
+                 finish: bool = True) -> int:
+    """Device bytes a walk decode of B images holds at its peak on a card:
+    decode_kernel8 with ST = 8 * MAXIT, decode_kernel_pk1 with ST8, over
+    NC = n_chunks(zlib_len_max) lanes of rasters h x bpl.  Its packed
+    inputs, already on the card, are not counted.  With finish=False, only
+    the walk and the epilogue (a walk8 attempt that overflows).
+
+    The stages, each the buffers it holds at once (walk_cuda,
+    walk_offsets, finalize_cuda, scatter_packed16, expand):
+      walk      three (B, ST, NC) int32 record arrays, five int32 and one
+                bool (B, NC) lane arrays, the LUTs as int32
+      epilogue  the records, e_fin, nst, the overflow and live flags, the
+                two int32 sums and _lane_sums' temporaries (or, after
+                them, the int64 prefix sum and its difference)
+      finish    the records, e_fin, nst, out0, the finalize's meta and
+                metb at the worst k8 = ST rows, the int16 raster, the
+                uint8 image and B6's scratch
+    plus B-sized tensors, each counted at the allocator's 512 bytes.
+
+    One image always launches (models/decoder.plan_sub_batches), and it
+    fits the 80 GB card: the walk gate's largest raster, 5824 x 7680 x 3
+    (134.2 M bytes), with a stream as long as its raster (the encoder
+    stores a longer one), has 2.1 M lanes, and its PK=1 decode counts
+    3 x 4.5 GB of records + 2 x 4.5 GB of meta and metb at k8 = 536 +
+    0.5 GB of raster, image and scratch = 23.0 GB here (4.5 GB on walk8);
+    its meta and metb take 8 bytes a lane and a trimmed row, so a decode
+    whose steps stay within walk8's 96 rows holds about 15.6 GB."""
+    lane, flag = _block(4 * B * NC), _block(B * NC)
+    rec = _block(4 * B * ST * NC)
+    few = 16 * _block(24 * B)
+    R = min(_EPI_ROWS, ST)
+    slab = _block(4 * B * R * NC) + 3 * _block(B * R * NC) + lane
+    walk = 3 * rec + 5 * lane + flag + _block(4 * 4096 * B) + few
+    epilogue = 3 * rec + 4 * lane + 2 * flag + few + \
+        max(slab, 2 * _block(8 * B * NC) + lane)
+    if not finish:
+        return max(walk, epilogue)
+    _, strip, bands, strips = tiling(h, bpl)
+    meta = rec  # (B, k8, NC) int32 at the worst k8 = ST
+    fin = 3 * rec + 3 * lane + 2 * meta + _block(2 * B * h * bpl) + \
+        _block(B * h * bpl) + _block(_scratch_bytes(B, strip, bands, strips)) \
+        + few
+    return max(walk, epilogue, fin)
 
 
 def finish_decode(finalize, records, e_fin, out0, zlib_len, *, k8: int,

@@ -736,3 +736,45 @@ def test_extreme_shape_on_card_matches_cpu(h, w, ch, flags, monkeypatch):
         assert sts == [0] and np.array_equal(outs[0], img), dev
         paths.append(dict(decode_batch.paths))
     assert paths[0] == paths[1]
+
+
+@pytest.mark.parametrize("kind", ["real3", "real4"])
+def test_decode_memory_model_and_split_on_card(kind):
+    """The walk decode's byte model (ops/walk8.decode_bytes) against the
+    dispatch's measured peak on a small walk8 batch (32 tiles of 256 x 256
+    x 3, 1-pass) and a small PK=1 batch (32 x 4 channels, 1-pass, whose
+    tiles 4 and 7 overflow walk8): at least the peak and at most 1.5
+    times it.  Then a budget for half the batch splits it into two
+    sub-batches with the same pixels."""
+    from fpng_tpu_torch import bench
+    from fpng_tpu_torch.models.decoder import dispatch_kernel
+    from fpng_tpu_torch.tools.profile_kernels import decode_inputs
+
+    imgs = bench.make_corpus(kind, B=32)
+    _, h, w, c = imgs.shape
+    args, kept = decode_inputs(T.encode_batch(imgs, device="cuda"), imgs,
+                               "cuda")
+    n, zmax = len(kept), int(args[3].max())
+    nc, kw = W.n_chunks(zmax), dict(h=h, w=w, c=c, zmax=zmax)
+    o0 = decode_batch.walk8_overflows
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    whole = dispatch_kernel(*args, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    overflowed = decode_batch.walk8_overflows - o0
+    assert (whole[3], overflowed) == (("pk1", 1) if kind == "real4" else
+                                      ("walk8", 0))
+    model = W.decode_bytes(n, nc, 8 * W.MAXIT, h, w * c,
+                           finish=not overflowed)
+    if overflowed:
+        model = max(model, W.decode_bytes(n, nc, PK.ST8, h, w * c))
+    assert peak <= model <= 1.5 * peak
+    assert bool(whole[1].all()) and \
+        np.array_equal(whole[0].cpu().numpy(), kept)
+    budget = W.decode_bytes(-(-n // 2), nc, PK.ST8, h, w * c) + n * h * w * c
+    s0 = decode_batch.sub_batches
+    split = dispatch_kernel(*args, **kw, mem_budget=budget)
+    assert decode_batch.sub_batches - s0 == 2 and split[3] == whole[3]
+    assert torch.equal(split[0], whole[0]) and torch.equal(split[1], whole[1])
