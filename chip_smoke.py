@@ -886,9 +886,11 @@ def expand_times(torch, T, bench):
 
 def decode_spans(torch, T, pngs, Cc, runs=3):
     """decode_batch runs with the decoder's stage spans on
-    (models/decoder.py:_span, a synchronise at each end of a stage): per
-    run its wall time, each stage, and rest = wall - the stages (Python
-    between the spans), all from that one run."""
+    (models/decoder.py:_span; host-clock spans that do not synchronise, so
+    a stage that queues card work is charged the host's time to queue it,
+    and the wait for the readback falls between the spans): per run its
+    wall time, each stage, and rest = wall - the stages (Python and that
+    wait between the spans), all from that one run."""
     from fpng_tpu_torch.models.decoder import decode_batch
 
     out = []

@@ -17,6 +17,15 @@ prologue.  2-pass first histograms the tokens on the device (hist_kernel),
 builds each image's tables on the host (the native runtime, else its
 Python twin) and then encodes with them.  encode_batch_stream pipelines
 batches over the same stages, with pinned host buffers (transfer.py).
+
+Spans (utils/trace.py): a call - encode_batch, or a batch of
+encode_batch_stream - is traced while a torch.profiler session is enabled;
+untraced, a span reads one flag.  A traced call opens a profiler range and
+a registry entry for each stage: `encoder.upload` (pixels and table
+columns to the device), `.tables`, `.kernel` (the prologue and B1; for
+2-pass also the histogram), `.crc` (B2's host prologue and launch),
+`.readback`, `.container` (the host splice) and `.stored` (the
+stored-block fallback and FPNG_FORCE_UNCOMPRESSED).  No span synchronises.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ..ops.encfuse import (DESC_EXTRA_N_SHIFT, DESC_EXTRA_VAL_SHIFT,
 from ..ops.filter import filter_deltas
 from ..ops.tokenize import match_fields
 from ..tables import one_pass_state
+from ..utils import trace
 from .transfer import finish_readback, start_readback, to_device
 
 
@@ -240,10 +250,14 @@ def _finish_batch_devcrc(images, words, crc, total_bits, last_tok, adler,
         (tb + 4 > budget) | (plens > budget)
     hdr50 = build_header(0, W, H, Cc)[:50]
     wb = words.view(np.uint8)  # (B, NW*4) little-endian payload bytes
+    stored = {}
+    if fail.any():
+        with trace.span("encoder.stored"):
+            stored = {b: _stored_png(images[b]) for b in np.flatnonzero(fail)}
     out = []
     for b in range(B):
         if fail[b]:
-            out.append(_stored_png(images[b]))
+            out.append(stored[b])
             continue
         t = int(tb[b])
         p = prefixes[b]
@@ -323,34 +337,48 @@ def _encode_launch(dev_imgs, images: np.ndarray, flags: int, hist):
     B, H, W, Cc = images.shape
     dev = dev_imgs.device
     budget = _budget(H, W, Cc)
-    codes, sizes, prefixes, pend_val, pend_n, cost_check = _prepare_tables(
-        images, hist, flags, dev)
+    with trace.span("encoder.tables"):
+        codes, sizes, prefixes, pend_val, pend_n, cost_check = \
+            _prepare_tables(images, hist, flags, dev)
     # desc-field invariants (ops/encfuse.py layout), for every image: the
     # pending tail carries <= 7 bits, and the header prefix fits base_bits
     assert int(pend_n.max()) <= 7 and int(pend_val.max()) < (1 << 13)
     assert max(map(len, prefixes)) * 8 < _MAX_BASE_BITS
 
-    def col(a):
-        return to_device(np.asarray(a, np.int32), dev)
-
-    words, total_bits, last_tok, adler, _ = encode_kernel(
-        dev_imgs, codes, sizes, col([len(p) * 8 for p in prefixes]),
-        col(pend_val), col(pend_n), num_chans=Cc, cost_check=cost_check,
-        want_hist=False, num_words=_num_words(budget))
-    crc = launch_assemble(words, total_bits, adler, prefixes)
+    with trace.span("encoder.upload"):
+        base_bits, pv, pn = (
+            to_device(np.asarray(a, np.int32), dev)
+            for a in ([len(p) * 8 for p in prefixes], pend_val, pend_n))
+    with trace.span("encoder.kernel"):
+        words, total_bits, last_tok, adler, _ = encode_kernel(
+            dev_imgs, codes, sizes, base_bits, pv, pn, num_chans=Cc,
+            cost_check=cost_check, want_hist=False,
+            num_words=_num_words(budget))
+    with trace.span("encoder.crc"):
+        crc = launch_assemble(words, total_bits, adler, prefixes)
     return (start_readback((words, crc, total_bits, last_tok, adler)),
             prefixes, budget)
 
 
 def _encode_finish(images: np.ndarray, launched) -> list[bytes]:
     readback, prefixes, budget = launched
-    return _finish_batch_devcrc(images, *finish_readback(readback),
-                                prefixes, budget)
+    with trace.span("encoder.readback"):
+        results = finish_readback(readback)
+    with trace.span("encoder.container"):
+        return _finish_batch_devcrc(images, *results, prefixes, budget)
 
 
 def _hist(dev_imgs, flags: int):
-    return (hist_kernel(dev_imgs, num_chans=dev_imgs.shape[3])
-            if flags & C.FPNG_ENCODE_SLOWER else None)
+    if not flags & C.FPNG_ENCODE_SLOWER:
+        return None
+    with trace.span("encoder.kernel"):
+        return hist_kernel(dev_imgs, num_chans=dev_imgs.shape[3])
+
+
+def _stored(images: np.ndarray) -> list[bytes]:
+    """FPNG_FORCE_UNCOMPRESSED: every image as stored blocks, on the host."""
+    with trace.span("encoder.stored"):
+        return [_stored_png(img) for img in images]
 
 
 def encode_batch_device_input(dev_imgs, images: np.ndarray, flags: int = 0,
@@ -359,12 +387,14 @@ def encode_batch_device_input(dev_imgs, images: np.ndarray, flags: int = 0,
     to copy `images` to `device`).  `images` is the matching host copy,
     used for the stored-block fallback."""
     _validate(images)
-    if flags & C.FPNG_FORCE_UNCOMPRESSED:
-        return [_stored_png(img) for img in images]
-    if dev_imgs is None:
-        dev_imgs = to_device(images, device)
-    return _encode_finish(images, _encode_launch(
-        dev_imgs, images, flags, _hist(dev_imgs, flags)))
+    with trace.within(trace.begin("encode_batch")):
+        if flags & C.FPNG_FORCE_UNCOMPRESSED:
+            return _stored(images)
+        if dev_imgs is None:
+            with trace.span("encoder.upload"):
+                dev_imgs = to_device(images, device)
+        return _encode_finish(images, _encode_launch(
+            dev_imgs, images, flags, _hist(dev_imgs, flags)))
 
 
 def encode_batch_stream(batches, flags: int = 0, device="cuda"):
@@ -379,29 +409,28 @@ def encode_batch_stream(batches, flags: int = 0, device="cuda"):
     FPNG_FORCE_UNCOMPRESSED stays on the host.  On a CPU device the stages
     run in order.
     """
-    def stage_in(images):
-        images = np.ascontiguousarray(images, dtype=np.uint8)
+    def launch(batch):
+        images = np.ascontiguousarray(batch, dtype=np.uint8)
         _validate(images)
-        if flags & C.FPNG_FORCE_UNCOMPRESSED:
-            return images, None, None
-        dev_imgs = to_device(images, device)
-        return images, dev_imgs, _hist(dev_imgs, flags)
-
-    def launch(staged):
-        images, dev_imgs, hist = staged
-        if dev_imgs is None:  # stored path: host only
-            return images, None
-        return images, _encode_launch(dev_imgs, images, flags, hist)
+        call = trace.begin("encode_batch_stream")
+        with trace.within(call):
+            if flags & C.FPNG_FORCE_UNCOMPRESSED:  # stored path: host only
+                return call, images, None
+            with trace.span("encoder.upload"):
+                dev_imgs = to_device(images, device)
+            return call, images, _encode_launch(
+                dev_imgs, images, flags, _hist(dev_imgs, flags))
 
     def finish(launched):
-        images, state = launched
-        if state is None:
-            return [_stored_png(img) for img in images]
-        return _encode_finish(images, state)
+        call, images, state = launched
+        with trace.within(call):
+            if state is None:
+                return _stored(images)
+            return _encode_finish(images, state)
 
     pending = None
     for batch in batches:
-        launched = launch(stage_in(batch))
+        launched = launch(batch)
         if pending is not None:
             yield finish(pending)
         pending = launched

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import walk8 as W
 
 ST8 = W.S + 24  # step rows a lane: one step a bit, plus the token tail
@@ -92,13 +93,20 @@ def decode_kernel_pk1(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
 
     Same inputs as ops/walk8.decode_kernel8.  Returns (imgs (B, h, w, c)
     uint8, ok (B,) bool); it has no capacity overflow.  One device->host
-    readback: the step trim and the passes (added to walk_fix.passes).
+    readback: the step trim and the passes (added to walk_fix.passes and,
+    in a traced call, to the counters decoder.pk1_passes and
+    decoder.pk1_walks; it is the host wait of the PK=1 card clock,
+    utils/trace.py).
     """
     records, e_fin, out0, steps, _, passes = W.walk_offsets(
         walk_fix, stream, lut, p0, zlib_len,
         n_chunks=W.n_chunks(zlib_len_max))
-    diag = torch.stack([steps.to(torch.int32), passes]).cpu()
+    diag = torch.stack([steps.to(torch.int32), passes])
+    with trace.host_wait():
+        diag = diag.cpu()
     walk_fix.passes += int(diag[1])
+    trace.count("decoder.pk1_walks")
+    trace.count("decoder.pk1_passes", int(diag[1]))
     k8 = W.trim_steps(int(diag[0]), ST8)
     return W.finish_decode(finalize_records, records, e_fin, out0, zlib_len,
                            k8=k8, h=h, w=w, c=c)

@@ -31,6 +31,7 @@ from ..models.decoder import (_parse_one, decode_batch, dispatch_kernel,
                               pack_streams)
 from ..models.transfer import finish_readback, start_readback, to_device
 from ..tables import one_pass_state
+from ..utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,7 +149,12 @@ def decode_batch_sharded(mesh: Mesh, pngs: list, h: int, w: int, ch: int):
     chunked walk could not finish go to the host decoder, as in
     decode_batch.  The paths and hand-offs count in decode_batch's
     counters.  Returns (imgs (B, h, w, ch) uint8, ok (B,) bool) as numpy
-    arrays."""
+    arrays.
+
+    A traced call (utils/trace.py, op `decode_batch_sharded`) spans each
+    shard's launch (`mesh.shard`) and readback wait (`mesh.readback`), the
+    shard's index in the range's args, and the join of the shards' results
+    with the host hand-offs (`mesh.join`)."""
     from ..golden import decode_zlib
 
     _shard_len(mesh, len(pngs))
@@ -160,24 +166,30 @@ def decode_batch_sharded(mesh: Mesh, pngs: list, h: int, w: int, ch: int):
     stream, luts, p0, zl = pack_streams(metas)
     parts = zip(*(_split(mesh, a) for a in (stream, luts.astype(np.int64),
                                             p0, zl)))
-    launched = []
-    for d, part in zip(mesh.devices, parts):
-        with _on(d):
-            args = tuple(to_device(a, d) for a in part)
-            imgs, ok, overflow, path = dispatch_kernel(
-                *args, h=h, w=w, c=ch, zmax=int(part[3].max()))
-            decode_batch.paths[path] += 1
-            launched.append(start_readback((imgs, ok, overflow)))
-    res = [finish_readback(r) for r in launched]
-    imgs = np.concatenate([r[0] for r in res])
-    ok = np.concatenate([r[1] for r in res])
-    for j in np.flatnonzero(np.concatenate([r[2] for r in res])):
-        decode_batch.host_handoffs += 1
-        src, zlib_len = metas[j][4], metas[j][6]
-        img = decode_zlib(src, zlib_len, w, h, ch)
-        ok[j] = img is not None
-        if img is not None:
-            imgs[j] = img
+    with trace.within(trace.begin("decode_batch_sharded")):
+        launched = []
+        for i, (d, part) in enumerate(zip(mesh.devices, parts)):
+            with _on(d), trace.span("mesh.shard", f" shard={i}"):
+                args = tuple(to_device(a, d) for a in part)
+                imgs, ok, overflow, path = dispatch_kernel(
+                    *args, h=h, w=w, c=ch, zmax=int(part[3].max()))
+                decode_batch.paths[path] += 1
+                launched.append(start_readback((imgs, ok, overflow)))
+        res = []
+        for i, r in enumerate(launched):
+            with trace.span("mesh.readback", f" shard={i}"):
+                res.append(finish_readback(r))
+        trace.settle()
+        with trace.span("mesh.join"):
+            imgs = np.concatenate([r[0] for r in res])
+            ok = np.concatenate([r[1] for r in res])
+            for j in np.flatnonzero(np.concatenate([r[2] for r in res])):
+                decode_batch.host_handoffs += 1
+                src, zlib_len = metas[j][4], metas[j][6]
+                img = decode_zlib(src, zlib_len, w, h, ch)
+                ok[j] = img is not None
+                if img is not None:
+                    imgs[j] = img
     return imgs, ok
 
 

@@ -10,7 +10,9 @@ clock, ending with force1 on the last result.
 
 profiled(device, name) is the harness's FPNG_TPU_PROFILE=<dir> switch: a
 torch.profiler trace of the block, written as <dir>/<name>_trace.json (a
-Chrome trace).
+Chrome trace).  The session turns on the program's own spans
+(utils/trace.py), so the trace shows its stages as ranges - `decoder.*`,
+`encoder.*`, `transfer.*`, `mesh.*` - over the card's kernels.
 
 main times the port's own stages on a batch of synthetic tiles with
 chain: the encode's build_desc prologue, kernel B1 and the whole
@@ -66,7 +68,8 @@ def chain(f, *a, K: int = 10) -> float:
 @contextlib.contextmanager
 def profiled(device, name: str):
     """Trace the block with torch.profiler when FPNG_TPU_PROFILE names a
-    directory (the card's kernels too on a CUDA device); else do nothing."""
+    directory (the card's kernels too on a CUDA device, and the program's
+    stage ranges); else do nothing."""
     prof_dir = os.environ.get("FPNG_TPU_PROFILE")
     if not prof_dir:
         yield
