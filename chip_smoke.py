@@ -16,8 +16,9 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      finalize's (B, k8, NC) records and flattened to (B, N)); B2 is
      the whole IDAT CRC, with the device activities of one
      launch_assemble counted by torch.profiler; then B3 once more on the
-     32 bpp 1-pass corpus, whose overflowing images it stops at their
-     first converged overflow (each walk is one launch); B6 is held
+     32 bpp 1-pass corpus, whose overflowing lanes walk on to exact exits,
+     so B3 reaches B8's entries and passes and B8 resumes from them in 2
+     passes (each walk is one launch); B6 is held
      against its plain version on every decode's raster below as well;
   4. drives encode_batch / decode_batch (and the single-image entry
      points) at the headline size, 128 x 256 x 256 x 3: the decode takes
@@ -120,6 +121,7 @@ without the ok line.  It imports no JAX and nothing of fpng_tpu.
 """
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -673,10 +675,14 @@ def walk_counts(W, out):
 
 def phase_walk8_overflow(torch, T, imgs):
     """B3 on the 32 bpp 1-pass corpus, which overflows walk8: the kernel
-    stops each overflowing image at its first converged overflow as the
-    plain version does (overflow flags and passes equal), and gives every
-    other image the plain version's outputs.  The line gives the pass
-    after which the plain version stopped each overflowing image."""
+    gives the plain version's outputs for every image (an overflowing
+    lane's records up to its rows, its exit walked on to its chunk end),
+    B8's converged entries and passes, and B8 seeded with its entries
+    (resume_seed: the launch the decode chain makes) reads 2 passes to the
+    same entries.  The line gives B3's passes beside the unseeded and the
+    seeded B8's, and the seeded B8's time (a copy of the seed included:
+    the walk writes its entries into the seed)."""
+    from fpng_tpu_torch.ops import specdec_tpu as PK
     from fpng_tpu_torch.ops import walk8 as W
 
     pngs = T.encode_batch(imgs, device=DEV)
@@ -688,21 +694,33 @@ def phase_walk8_overflow(torch, T, imgs):
     n0 = W.walk_fix8.launches
     g = walk()
     check(W.walk_fix8.launches == n0 + 1, "B3 is not one launch a walk")
-    w, stopped = W.fixpoint_plain(words, lut32, p0_32, zl8, n_chunks=nc,
-                                  ST=8 * W.MAXIT, abort_on_overflow=True)
-    done = stopped > 0
+    w = W.walk_fix8_plain(words, lut32, p0_32, zl8, n_chunks=nc)
     live = W._lane_geometry(zl8, nc)[1]
-    g_ovf, w_ovf = ((o[2] & live).any(dim=1) for o in (g, w))
-    check(torch.equal(g_ovf, w_ovf), "B3 image overflow flags differ")
-    check(bool(done.any()) and torch.equal(done, w_ovf),
-          "an overflowing image was not stopped")
-    keep = torch.nonzero(~done).flatten()
-    err = walk_err(torch, "B3 (overflowing batch)", g, w, images=keep)
+    ovf = (w[2] & live).any(dim=1)
+    check(torch.equal((g[2] & live).any(dim=1), ovf),
+          "B3 image overflow flags differ")
+    check(bool(ovf.any()), "the 32 bpp 1-pass corpus does not overflow")
+    err = walk_err(torch, "B3 (overflowing batch)", g, w)
+    b8 = PK.walk_fix(words, lut32, p0_32, zl8, n_chunks=nc)
+    check(torch.equal(g[0], b8[0]) and int(g[6]) == int(b8[6]),
+          "B3's converged entries or passes are not B8's")
+
+    seed = W.resume_seed(*g[3:6], g[1], g[0])
+
+    def resumed():
+        return PK.walk_fix(words, lut32, p0_32, zl8, n_chunks=nc,
+                           seed=seed.clone())
+
+    r = resumed()
+    check(torch.equal(r[0], b8[0]) and int(r[6]) == 2,
+          "B8 seeded with B3's entries is not 2 passes to B8's entries")
+    err = max(err, walk_err(torch, "B8 (resumed)", r, PK.walk_fix_plain(
+        words, lut32, p0_32, zl8, n_chunks=nc, seed=seed.clone())))
     line("walk8_overflow", name="walk_fix8", corpus="real4_1pass",
-         shape=[Bd, nc], aborted_images=int(done.sum()),
-         stopped_after_passes=stopped[done].tolist(),
-         converged_images=int(keep.numel()), max_abs_err=err,
-         ms=cuda_ms(torch, walk, 5),
+         shape=[Bd, nc], overflowing_images=int(ovf.sum()),
+         b3_passes=int(g[6]), b8_passes=int(b8[6]),
+         b8_resumed_passes=int(r[6]), max_abs_err=err,
+         ms=cuda_ms(torch, walk, 5), b8_resumed_ms=cuda_ms(torch, resumed, 5),
          bound_ms=walk_bound(words, lut32, g, Bd, nc)[0],
          **walk_counts(W, g))
     B, H, W_, Cc = imgs.shape
@@ -734,7 +752,10 @@ def phase_demote(torch, imgs):
 
 def phase_pk1(torch, T, imgs):
     """B8 and B9 against their plain versions on the decode of a 2-pass
-    batch whose streams overflow walk8's 96 step rows."""
+    batch whose streams overflow walk8's 96 step rows: B8 unseeded (as
+    with FPNG_TPU_WALK8=0) and seeded with walk8's entries (decode_kernel8's
+    seed, as the decode chain resumes), and B9 on each walk's records at
+    its own step trim."""
     from fpng_tpu_torch.ops import specdec_tpu as PK
     from fpng_tpu_torch.ops import walk8 as W
     from fpng_tpu_torch.ops.bitpack import (scatter_packed16,
@@ -747,6 +768,10 @@ def phase_pk1(torch, T, imgs):
     ovf = W.decode_walk8(st_d, lut32, p0_d, zl_d, n_chunks=nc)[4]
     n_ovf = int(ovf.sum())
     check(n_ovf > 0, "the 2-pass corpus does not overflow walk8")
+    got8, _, seed8 = W.decode_kernel8(st_d, lut32, p0_d, zl_d, h=H, w=W_,
+                                      c=Cc, zlib_len_max=int(zl_d.max()))
+    check(got8 is None and seed8 is not None,
+          "walk8 does not hand the 2-pass corpus its entries")
 
     def walk():
         return PK.walk_fix(words, lut32, p0_32, zl8_32, n_chunks=nc)
@@ -765,37 +790,64 @@ def phase_pk1(torch, T, imgs):
         shape=[Bd, nc], recorded_steps=int(g[1].sum()),
         walk8_overflow_images=n_ovf)}
 
-    records, e_fin, out0, steps, _, _ = W.walk_offsets(
-        PK.walk_fix, st_d, lut32, p0_d, zl_d, n_chunks=nc)
-    k8 = W.trim_steps(int(steps), PK.ST8)
-    check(k8 > 8 * W.MAXIT, f"PK=1 trim {k8} within walk8's rows")
-    kw = dict(k8=k8, h=H, bpl=W_ * Cc, c=Cc)
-    fin_args = (*records, e_fin, out0)
-    g5 = PK.finalize_records(*fin_args, **kw)
-    w5 = PK.finalize_records_plain(*fin_args, **kw)
-    for a, b, what in zip(g5, w5, ("meta", "metb", "chk")):
-        check(torch.equal(a, b), f"B9 {what} differs from plain")
-    read_rows = int(torch.clamp(records[3], max=k8).sum())
-    out_rows = Bd * k8 * nc
-    res["finalize_records"] = dict(
-        max_abs_err=max(int((a.to(torch.int64) - b.to(torch.int64))
-                            .abs().max()) for a, b in zip(g5, w5)),
-        ms=cuda_ms(torch, lambda: PK.finalize_records(*fin_args, **kw), 10),
-        plain_ms=cuda_ms(torch, lambda: PK.finalize_records_plain(
-            *fin_args, **kw), 2),
-        **profiler_line(profiled_ms(torch, lambda: PK.finalize_records(
-            *fin_args, **kw))),
-        # as finalize_records8: 12 bytes a recorded row read, 8 an output
-        # row written, 12 a lane read, 12 a check triple written
-        bound=bound(12 * read_rows + 8 * out_rows + 12 * Bd * nc + 12 * Bd,
-                    60 * read_rows + 4 * out_rows),
-        shape=[Bd, k8, nc], read_rows=read_rows)
-    raster = scatter_packed16(g5[0], g5[1], H * W_ * Cc)
-    check(torch.equal(raster, scatter_packed16_plain(g5[0], g5[1],
-                                                     H * W_ * Cc)),
-          "B5 on the PK=1 records differs from plain")
-    check_expand(torch, raster, imgs[device_decoded(pngs)], "the PK=1 "
-                 "decode of the 24 bpp 2-pass corpus")
+    def walk_resumed():
+        return PK.walk_fix(words, lut32, p0_32, zl8_32, n_chunks=nc,
+                           seed=seed8.clone())
+
+    gr = walk_resumed()
+    wr = PK.walk_fix_plain(words, lut32, p0_32, zl8_32, n_chunks=nc,
+                           seed=seed8.clone())
+    check(int(gr[6]) == 2 and torch.equal(gr[0], g[0]),
+          "B8 seeded with walk8's entries is not 2 passes to B8's entries")
+    res["walk_fix_resumed"] = dict(
+        max_abs_err=walk_err(torch, "B8 (resumed)", gr, wr),
+        ms=cuda_ms(torch, walk_resumed, 3), plain_ms=cuda_ms(
+            torch, lambda: PK.walk_fix_plain(
+                words, lut32, p0_32, zl8_32, n_chunks=nc,
+                seed=seed8.clone()), 1),
+        bound=walk_bound(words, lut32, gr, Bd, nc), **walk_counts(W, gr),
+        shape=[Bd, nc], recorded_steps=int(gr[1].sum()))
+
+    def b9(key, tag, walk):
+        """B9 (and B5) on the records of one PK=1 walk at its step trim."""
+        records, e_fin, out0, steps, _, _ = W.walk_offsets(
+            walk, st_d, lut32, p0_d, zl_d, n_chunks=nc)
+        k8 = W.trim_steps(int(steps), PK.ST8)
+        check(k8 > 8 * W.MAXIT, f"PK=1{tag} trim {k8} within walk8's rows")
+        kw = dict(k8=k8, h=H, bpl=W_ * Cc, c=Cc)
+        fin_args = (*records, e_fin, out0)
+        g5 = PK.finalize_records(*fin_args, **kw)
+        w5 = PK.finalize_records_plain(*fin_args, **kw)
+        for a, b, what in zip(g5, w5, ("meta", "metb", "chk")):
+            check(torch.equal(a, b), f"B9{tag} {what} differs from plain")
+        read_rows = int(torch.clamp(records[3], max=k8).sum())
+        out_rows = Bd * k8 * nc
+        res[key] = dict(
+            max_abs_err=max(int((a.to(torch.int64) - b.to(torch.int64))
+                                .abs().max()) for a, b in zip(g5, w5)),
+            ms=cuda_ms(torch, lambda: PK.finalize_records(*fin_args, **kw),
+                       10),
+            plain_ms=cuda_ms(torch, lambda: PK.finalize_records_plain(
+                *fin_args, **kw), 2),
+            **profiler_line(profiled_ms(torch, lambda: PK.finalize_records(
+                *fin_args, **kw))),
+            # as finalize_records8: 12 bytes a recorded row read, 8 an
+            # output row written, 12 a lane read, 12 a check triple written
+            bound=bound(12 * read_rows + 8 * out_rows + 12 * Bd * nc +
+                        12 * Bd, 60 * read_rows + 4 * out_rows),
+            shape=[Bd, k8, nc], read_rows=read_rows)
+        raster = scatter_packed16(g5[0], g5[1], H * W_ * Cc)
+        check(torch.equal(raster, scatter_packed16_plain(g5[0], g5[1],
+                                                         H * W_ * Cc)),
+              f"B5 on the PK=1{tag} records differs from plain")
+        check_expand(torch, raster, imgs[device_decoded(pngs)],
+                     f"the PK=1{tag} decode of the 24 bpp 2-pass corpus")
+        return k8
+
+    k8 = b9("finalize_records", "", PK.walk_fix)
+    k8r = b9("finalize_records_resumed", " (resumed)",
+             functools.partial(PK.walk_fix, seed=seed8.clone()))
+    check(k8r <= k8, f"the resumed walk's trim {k8r} past the walk's {k8}")
     return kernel_line(res)
 
 
@@ -975,8 +1027,9 @@ def profile_encode(torch, T, imgs):
 
 def walk_split(torch, pngs):
     """Host-clock seconds of the two device decodes of one packed batch:
-    the walk8 attempt (decode_kernel8; None when it overflows) and the
-    PK=1 decode, each ending in a synchronise."""
+    the walk8 attempt (decode_kernel8; its converged entries when it
+    overflows) and the PK=1 decode, resumed from those entries as the
+    decode chain does, each ending in a synchronise."""
     from fpng_tpu_torch.models.decoder import _parse_one, pack_streams
     from fpng_tpu_torch.ops.specdec_tpu import decode_kernel_pk1
     from fpng_tpu_torch.ops.walk8 import decode_kernel8
@@ -986,14 +1039,16 @@ def walk_split(torch, pngs):
     stream, luts, p0, zl = pack_streams(metas)
     args = [torch.from_numpy(a.astype(t)).to(DEV) for a, t in zip(
         (stream, luts, p0, zl), (np.uint8, np.int64, np.int64, np.int64))]
-    out = {}
+    out, kw = {}, dict(h=h, w=w, c=c, zlib_len_max=int(zl.max()))
     for name, fn in (("walk8_s", decode_kernel8),
                      ("pk1_s", decode_kernel_pk1)):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        fn(*args, h=h, w=w, c=c, zlib_len_max=int(zl.max()))
+        res = fn(*args, **kw)
         torch.cuda.synchronize()
         out[name] = time.perf_counter() - t
+        if len(res) == 3 and res[2] is not None:  # walk8's entries
+            kw["seed"] = res[2]
     return out
 
 

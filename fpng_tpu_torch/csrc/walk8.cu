@@ -9,34 +9,36 @@
 // up in the packed LUT (ops/specdec.pack_lut) held in shared memory, and
 // records one row per step - position, sym | rec << 9 | outlen << 10 |
 // clen << 19 | is_match << 23, and the packed second literal (0x100 | s2,
-// or 0) - until it reaches its chunk's end, hits an invalid code, or fills
-// its ST rows (then it reports overflow).
+// or 0) - in its first ST steps.  It walks on, unrecorded, until it
+// reaches its chunk's end, hits an invalid code, or has taken kMaxSteps
+// (536: B8's rows) steps; a walk that did not fit its ST rows reports
+// overflow.  So a lane's exit does not depend on ST: B3 at 96 rows
+// computes B8's exits, passes and converged entries, and B8 can resume
+// from them (the seed, ops/walk8.resume_seed).
 //
 // The TPU ran the groups of lanes in grid order, carrying the previous
 // group's converged exit in SMEM, and iterated inside the kernel.  Here
 // the blocks of one cooperative grid (the occupancy limit, capped by the
 // work) run every pass and meet at a grid-wide barrier between passes:
-// pass 0 walks each lane from its chunk boundary (lane 0 from p0); pass k
-// sets entry[c] = exit[c-1] from pass k-1's exits (double-buffered in
-// device memory, read past L1, so every pass reads a consistent snapshot)
-// and re-walks a lane only when its entry changed and is absent from the
-// first 32 recorded positions (or second-literal positions) of its last
-// walk - the same membership window as the TPU kernel, so the converged
-// entries, exits and overflow flags match it.  A block that saw a change
-// sets the pass's flag; after the barrier every block reads the same flag
-// and stops together, at most NC + 1 fixpoint passes.  The host sees no
-// pass: the pass count is written to device memory.
-//
-// With abort_on_overflow (B3), each image keeps its converged front: the
-// lanes below front[b] can no longer change.  After pass k the lane at the
-// old front is final (its predecessor was final a pass earlier), and so is
-// each later lane whose entry equals its predecessor's exit.  A front
-// phase after each pass finds the new front of every image at once (a
-// minimum over the lanes, by atomicMin) and, the same way, the first
-// overflowing live lane at or past the old front; when that lane lies
-// below the new front, it has just become final, the image is done - its
-// overflow is decided - and its lanes stop re-walking.  Other images run
-// on to convergence.
+// pass 0 walks each lane from its chunk boundary (lane 0 from p0), or
+// from its seed; pass k sets entry[c] = exit[c-1] from pass k-1's exits
+// (double-buffered in device memory, read past L1, so every pass reads a
+// consistent snapshot) and re-walks a lane only when its entry changed
+// and is absent from the first 32 recorded positions (or second-literal
+// positions) of its last walk - the same membership window as the TPU
+// kernel.  On an image that fits its rows the converged entries, exits
+// and overflow flags match fpng_tpu's walk8; on an overflowing image only
+// the per-image overflow flag does (fpng_tpu's walk stops at its rows),
+// and the entries are B8's.  A block that saw a change sets the pass's
+// flag; after the barrier every block reads the same flag and stops
+// together, at most NC + 1 fixpoint passes.  A seed is each lane's
+// converged entry, or ~p where the entry is the second literal of a
+// literal pair at p: a walk from that entry would pair the literals after
+// it otherwise and could exit a literal away, so the lane walks from p
+// and its entry is p plus the first literal's length.  Every exit is then
+// the converged one, and the seeded walk reads 2 passes: pass 0 walks and
+// records, pass 1 finds no change.  The host sees no pass: the pass count
+// is written to device memory.
 //
 // Work split: 256-lane tiles of one image each; each block owns a
 // contiguous run of tiles for the whole launch, so a lane's records are
@@ -44,20 +46,19 @@
 // its images into shared memory once (up to kMaxLuts; an image past those
 // slots is looked up through L1).
 //
-// What bounds it on the H100: the serial chain of re-walks - about ST
-// dependent steps of window, then LUT lookup, per fixpoint pass - against
-// the record bytes (12 per step) of pass 0 and pass 1, where most lanes
-// walk.  The design keeps the chain on the card and short: no launch,
-// memset or readback between passes and no LUT reload; each walk stages
-// its chunk's stream words in shared memory with one burst of loads, so a
-// step reads no device memory; the membership test issues its row loads
-// eight at a time; B3's stop cuts the overflow cascade (one more lane a
-// pass) at the first converged overflow.
+// What bounds it on the H100: the serial chain of re-walks - up to
+// kMaxSteps dependent steps of window, then LUT lookup, per fixpoint pass
+// - against the record bytes (12 per step) of pass 0 and pass 1, where
+// most lanes walk.  The design keeps the chain on the card and short: no
+// launch, memset or readback between passes and no LUT reload; each walk
+// stages its chunk's stream words in shared memory with one burst of
+// loads, so a step from the chunk reads no device memory; the membership
+// test issues its row loads eight at a time.  A fixpoint still moves a
+// wrong exit one lane a pass.
 
 #include <cooperative_groups.h>
 
 #include <algorithm>
-#include <climits>
 
 #include "common.cuh"
 
@@ -68,6 +69,9 @@ namespace cg = cooperative_groups;
 
 constexpr int kChunkBits = 512;
 constexpr int kMemb = 32;
+// the steps a walk takes at most: one a bit of its chunk, plus the token
+// tail (ops/walk8.CAP, B8's rows ops/specdec_tpu.ST8)
+constexpr int kMaxSteps = kChunkBits + 24;
 constexpr int kWalkThreads = 256;  // one 256-lane tile at a time
 constexpr int kLutWords = 4096;
 constexpr int kMaxLuts = 12;       // 12 x 16 KB of shared memory
@@ -79,8 +83,8 @@ struct WalkArgs {
   const int* lut;
   const int* p0;
   const int* zl8;
-  int nw, B, NC, ST, tpi, nt, abort, nlut;
-  int* ent;
+  int nw, B, NC, ST, tpi, nt, nlut, seeded;
+  int* ent;  // entries; with seeded, the seeds on entry
   int* ex0;  // exits of even passes
   int* ex1;  // exits of odd passes
   int* nst;
@@ -88,7 +92,7 @@ struct WalkArgs {
   int* posr;
   int* raw0;
   int* raw1;
-  int* ctl;  // changed flags [0, 3), passes, then the fronts (Fronts)
+  int* ctl;  // changed flags [0, 3), then passes
 };
 
 // Tiles [t0, t1) of block `blk` among G: a balanced contiguous split.
@@ -101,12 +105,15 @@ __device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ s,
   return wi < nw ? __ldg(s + wi) : 0u;
 }
 
-// Walk lane (b, c) from pos: records its steps, nst and ovf; returns its
-// exit.  The kStage stream words from pos's word on are first copied into
-// the thread's column of `stage` (shared memory, [word][thread], so a warp
-// reads 32 banks whatever its lanes' offsets), with their loads issued
-// together; each step then cuts its 32-bit window from shared memory, and
-// only a walk that runs past the staged words reads device memory again.
+// Walk lane (b, c) from pos: records its first ST steps, nst and ovf,
+// then walks on unrecorded; returns its exit.  The kStage stream words
+// from pos's word on are first copied into the thread's column of `stage`
+// (shared memory, [word][thread], so a warp reads 32 banks whatever its
+// lanes' offsets), with their loads issued together; each step then cuts
+// its 32-bit window from shared memory, and only a walk that runs past
+// the staged words reads device memory again.  The tail is a loop of its
+// own: a record branch inside the recording loop put a divergence point
+// on every step of the serial chain and slowed the walk by a sixth.
 __device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
                     int b, int c, int pos) {
   const size_t lane = (size_t)b * a.NC + c;
@@ -122,9 +129,8 @@ __device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
     for (int i = 0; i < kStage; ++i)
       stage[i * kWalkThreads] = word(s, a.nw, base + i);
   }
-  int j = 0;
-  for (; j < a.ST && act; ++j) {
-    const int sh = pos & 31, k = (pos >> 5) - base;
+  auto window = [&](int p) {
+    const int sh = p & 31, k = (p >> 5) - base;
     uint32_t w0, w1;
     if (k + 1 < kStage) {
       w0 = stage[k * kWalkThreads];
@@ -133,7 +139,11 @@ __device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
       w0 = word(s, a.nw, base + k);
       w1 = word(s, a.nw, base + k + 1);
     }
-    const uint32_t w = (w0 >> sh) | ((w1 << (31 - sh)) << 1);  // no >> 32
+    return (w0 >> sh) | ((w1 << (31 - sh)) << 1);  // no >> 32
+  };
+  int j = 0;
+  for (; j < a.ST && act; ++j) {
+    const uint32_t w = window(pos);
     const int e = lut[w & 0xFFF];
     const int sym = e & 511, clen = (e >> 9) & 15, nextra = (e >> 13) & 7;
     const bool is_m = sym > 256 && sym <= 285;
@@ -157,7 +167,16 @@ __device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
     }
   }
   a.nst[lane] = j;
-  a.ovf[lane] = act ? 1 : 0;
+  a.ovf[lane] = act ? 1 : 0;  // the walk did not fit its rows
+  for (; j < kMaxSteps && act; ++j) {
+    const int e = lut[window(pos) & 0xFFF];
+    const int sym = e & 511, clen = (e >> 9) & 15, l2 = (e >> 25) & 15;
+    if (clen == 0) break;  // an invalid code: the exit stays
+    const bool is_m = sym > 256 && sym <= 285;
+    pos += clen + (is_m ? ((e >> 13) & 7) + 1 : 0) +
+           (sym < 256 && l2 > 0 ? l2 : 0);
+    act = pos < bound;
+  }
   return pos;
 }
 
@@ -186,70 +205,6 @@ __device__ bool recorded(const WalkArgs& a, int b, int c, int pos) {
   return hit;
 }
 
-// The converged fronts live in ctl in three rotating slots of B words
-// each: the front phase after pass k writes slot k % 3, and it and the
-// lanes of pass k read slot (k + 2) % 3, the phase before it.  Block 0
-// resets slots 0 and 1 at the start and slot (k + 1) % 3 during pass k's
-// lanes, behind the barrier that ends its last reader, the front phase
-// after pass k - 1.
-struct Fronts {
-  int* nf;    // the new front: the first lane past the old one whose entry
-              // is not its predecessor's exit (NC: none)
-  int* ov;    // the first live overflowing lane at or past the old front
-  int* done;  // images stopped, stored a pass after the decision
-};
-
-__device__ __forceinline__ Fronts fronts(const WalkArgs& a) {
-  int* nf = a.ctl + 4;
-  return {nf, nf + 3 * a.B, nf + 6 * a.B};
-}
-
-__device__ __forceinline__ void reset_slot(const WalkArgs& a, int s) {
-  const Fronts f = fronts(a);
-  for (int b = threadIdx.x; b < a.B; b += kWalkThreads) {
-    f.nf[s * a.B + b] = a.NC;
-    f.ov[s * a.B + b] = INT_MAX;
-  }
-}
-
-// Whether image b's overflow was decided by the front phase of slot s or
-// before it.  The new lanes between the old front and the new one are
-// final; an overflow among them decides the image.
-__device__ __forceinline__ bool stopped(const WalkArgs& a, int b, int s) {
-  const Fronts f = fronts(a);
-  return __ldcg(f.done + b) ||
-         __ldcg(f.ov + s * a.B + b) < __ldcg(f.nf + s * a.B + b);
-}
-
-// The front phase after pass k, whose exits are `ex`, over the block's
-// tiles [t0, t1): each warp takes the first lane past the old front whose
-// entry is not its predecessor's exit, and the first live overflowing lane
-// at or past the old front, and the grid reduces both per image with
-// atomicMin (the lanes of a warp are one image's, in order).  The old
-// front is 0 after pass 0: lane 0 is final then.
-__device__ void front_phase(const WalkArgs& a, int t0, int t1, const int* ex,
-                            int k) {
-  const Fronts f = fronts(a);
-  const int s = k % 3, sp = (k + 2) % 3;
-  const int lead = threadIdx.x & 31;
-  for (int t = t0; t < t1; ++t) {
-    const int b = t / a.tpi;  // one image a tile
-    const int c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
-    const size_t lane = (size_t)b * a.NC + c;
-    bool bad = false, over = false;
-    if (c < a.NC && !(k > 0 && stopped(a, b, sp))) {
-      const int f0 = k > 0 ? __ldcg(f.nf + sp * a.B + b) : 0;
-      bad = c > f0 && __ldcg(a.ent + lane) != __ldcg(ex + lane - 1);
-      over = c >= f0 && c * kChunkBits < __ldg(a.zl8 + b) &&
-             __ldcg(a.ovf + lane) != 0;
-    }
-    const unsigned mb = __ballot_sync(0xffffffffu, bad);
-    const unsigned mo = __ballot_sync(0xffffffffu, over);
-    if (mb && lead == __ffs(mb) - 1) atomicMin(f.nf + s * a.B + b, c);
-    if (mo && lead == __ffs(mo) - 1) atomicMin(f.ov + s * a.B + b, c);
-  }
-}
-
 __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
   // shared memory: the staged stream words, then the LUTs
   extern __shared__ int smem[];
@@ -263,43 +218,35 @@ __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
   const int nl = min(a.nlut, (t1 - 1) / a.tpi - b_first + 1);
   for (int i = threadIdx.x; i < nl * kLutWords; i += kWalkThreads)
     lut_s[i] = __ldg(a.lut + (size_t)b_first * kLutWords + i);
-  if (a.abort && blockIdx.x == 0) {  // the slots of the phases after passes 0, 1
-    reset_slot(a, 0);
-    reset_slot(a, 1);
-  }
   __syncthreads();
   auto lut_of = [&](int b) {
     return b - b_first < nl ? lut_s + (b - b_first) * kLutWords
                             : a.lut + (size_t)b * kLutWords;
   };
   int* changed = a.ctl;
-  int* done = fronts(a).done;
 
-  // pass 0: every lane from its chunk boundary, lane 0 from p0
+  // pass 0: every lane from its chunk boundary (lane 0 from p0), or from
+  // its seed: its entry, or ~p for the pair at p whose second literal is
+  // its entry (then row 0 holds that pair)
   for (int t = t0; t < t1; ++t) {
     const int b = t / a.tpi, c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
     if (c >= a.NC) continue;
-    const int pos = c == 0 ? __ldg(a.p0 + b) : c * kChunkBits;
     const size_t lane = (size_t)b * a.NC + c;
-    a.ent[lane] = pos;
+    const int s = a.seeded ? a.ent[lane]
+                           : c == 0 ? __ldg(a.p0 + b) : c * kChunkBits;
+    const int pos = s < 0 ? ~s : s;
     a.ex0[lane] = walk(a, lut_of(b), stage, b, c, pos);
+    a.ent[lane] =
+        s < 0 ? pos + ((a.raw0[(size_t)b * a.ST * a.NC + c] >> 19) & 15) : s;
   }
   grid.sync();
-  if (a.abort) {
-    front_phase(a, t0, t1, a.ex0, 0);
-    grid.sync();
-  }
 
   int passes = 1;
   for (int k = 1; k <= a.NC + 1; ++k) {
     const int* ex_in = (k & 1) ? a.ex0 : a.ex1;
     int* ex_out = (k & 1) ? a.ex1 : a.ex0;
-    // the flag of pass k + 1 was last read before pass k - 1's barrier, and
-    // front slot (k + 1) % 3 before pass k - 1's front barrier
-    if (blockIdx.x == 0) {
-      if (threadIdx.x == 0) changed[(k + 1) % 3] = 0;
-      if (a.abort) reset_slot(a, (k + 1) % 3);
-    }
+    // the flag of pass k + 1 was last read before pass k - 1's barrier
+    if (blockIdx.x == 0 && threadIdx.x == 0) changed[(k + 1) % 3] = 0;
     int moved = 0;
     for (int t = t0; t < t1; ++t) {
       const int b = t / a.tpi;
@@ -307,16 +254,12 @@ __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
       if (c >= a.NC) continue;
       const size_t lane = (size_t)b * a.NC + c;
       int out = __ldcg(ex_in + lane);
-      if (a.abort && stopped(a, b, (k + 2) % 3)) {
-        if (c == 0) done[b] = 1;  // the slot that decided it is reset later
-      } else {
-        const int pos = c == 0 ? __ldg(a.p0 + b) : __ldcg(ex_in + lane - 1);
-        if (c * kChunkBits < __ldg(a.zl8 + b) && pos != a.ent[lane]) {
-          moved = 1;
-          a.ent[lane] = pos;
-          if (!recorded(a, b, c, pos))
-            out = walk(a, lut_of(b), stage, b, c, pos);
-        }
+      const int pos = c == 0 ? __ldg(a.p0 + b) : __ldcg(ex_in + lane - 1);
+      if (c * kChunkBits < __ldg(a.zl8 + b) && pos != a.ent[lane]) {
+        moved = 1;
+        a.ent[lane] = pos;
+        if (!recorded(a, b, c, pos))
+          out = walk(a, lut_of(b), stage, b, c, pos);
       }
       ex_out[lane] = out;
     }
@@ -324,10 +267,6 @@ __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
     grid.sync();
     passes = k + 1;
     if (__ldcg(changed + k % 3) == 0) break;  // the same word for all
-    if (a.abort) {
-      front_phase(a, t0, t1, ex_out, k);
-      grid.sync();
-    }
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) a.ctl[3] = passes;
 }
@@ -346,18 +285,21 @@ int max_span(int nt, int tpi, int G) {
 }  // namespace fpng
 
 // The whole walk over B images x NC lanes with ST step rows a lane, in one
-// cooperative launch.  ex0, ex1 (B, NC) are scratch; ctl (4 + 7B ints,
-// zeroed by the caller) gets the pass count at ctl[3].  info (host, 3
-// ints) gets the grid, the blocks per SM and the shared-memory LUT slots.
-// The grid is the co-resident limit for the launch's shared memory, capped
-// by the tiles; a launch the card refuses returns its error.
+// cooperative launch.  With seeded, ent (B, NC) holds the seeds on entry;
+// without, each lane starts at its chunk boundary (lane 0 at p0).  ex0,
+// ex1 (B, NC) are scratch; ctl (4 ints, zeroed by the caller) gets the
+// pass count at ctl[3].  info (host, 3 ints) gets the grid, the blocks
+// per SM and the shared-memory LUT slots.  The grid is the co-resident
+// limit for the launch's shared memory, capped by the tiles; a launch the
+// card refuses returns its error.
 extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
                           const int* p0, const int* zl8, int B, int NC,
-                          int ST, int abort_on_overflow, int* ent, int* ex0,
+                          int ST, int seeded, int* ent, int* ex0,
                           int* ex1, int* nst, int* ovf, int* posr, int* raw0,
                           int* raw1, int* ctl, int* info, void* stream) {
   using namespace fpng;
   if (B <= 0 || NC <= 0) return 0;
+  if (ST <= 0 || ST > kMaxSteps) return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -389,8 +331,7 @@ extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
   info[1] = occ;
   info[2] = nlut;
   WalkArgs a{(const uint32_t*)words, lut, p0, zl8, nw, B, NC, ST, tpi, nt,
-             abort_on_overflow, nlut, ent, ex0, ex1, nst, ovf, posr, raw0,
-             raw1, ctl};
+             nlut, seeded, ent, ex0, ex1, nst, ovf, posr, raw0, raw1, ctl};
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel((const void*)walk8_kernel, dim3(G),
                                   dim3(kWalkThreads), args, smem,

@@ -9,8 +9,11 @@ everything O(pixels).  dispatch_kernel is fpng_tpu's chain without its
     walk8 (ops/walk8.py, kernels B3-B6)          the default
     -> PK=1 (ops/specdec_tpu.py, B8, B9, B5, B6) when a walk8 lane
                                                  overflows its step
-                                                 capacity, or straight away
-                                                 with FPNG_TPU_WALK8=0
+                                                 capacity, resumed from
+                                                 walk8's converged entries;
+                                                 or straight away (from the
+                                                 chunk boundaries) with
+                                                 FPNG_TPU_WALK8=0
   past the gate:
     chunked decode (ops/specdec.py, B10)
     -> host decoder (golden.decode_zlib)         per image, when the chunked
@@ -212,21 +215,23 @@ def plan_sub_batches(B: int, nbytes, budget, out_bytes: int):
 
 
 def _walk_chain(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
-    """One sub-batch through walk8, then PK=1 on an overflow (or PK=1
-    straight away with FPNG_TPU_WALK8=0): (imgs, ok, path).  Each tier is
-    a span; the PK=1 tier's card time is clocked (trace.card_clock)."""
+    """One sub-batch through walk8, then PK=1 on an overflow, resumed from
+    walk8's converged entries (or PK=1 straight away with
+    FPNG_TPU_WALK8=0): (imgs, ok, path).  Each tier is a span; the PK=1
+    tier's card time is clocked (trace.card_clock)."""
     decode_batch.sub_batches += 1
+    seed = None
     if _use_walk8():
         with trace.span("decoder.walk8"):
-            out = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
-                                 zlib_len_max=zmax)
-        if out is not None:
-            return (*out, "walk8")
+            imgs, ok, seed = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
+                                            zlib_len_max=zmax)
+        if seed is None:
+            return imgs, ok, "walk8"
         decode_batch.walk8_overflows += 1
     with trace.span("decoder.pk1"), \
             trace.card_clock("decoder.pk1_card_s", sj.device):
         imgs, ok = decode_kernel_pk1(sj, lj, pj, zj, h=h, w=w, c=c,
-                                     zlib_len_max=zmax)
+                                     zlib_len_max=zmax, seed=seed)
     return imgs, ok, "pk1"
 
 
@@ -240,7 +245,7 @@ def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int,
     around its walks: before anything launches, the batch is split into
     contiguous sub-batches (plan_sub_batches) whose PK=1 decode
     (ops/walk8.decode_bytes at ST8 rows, the larger tier, since a walk8
-    overflow re-walks the same sub-batch on PK=1) fits the budget:
+    overflow decodes the same sub-batch again on PK=1) fits the budget:
     mem_budget bytes, or by default the card's free memory at launch
     (_free_bytes; no split on the CPU).  A sub-batch of one image launches
     whatever its model says (decode_bytes says why it fits the card).  Each

@@ -9,10 +9,11 @@ chunks and one lane walks each chunk:
                         packed LUT (one step = one token, or two literals
                         when the LUT packs a second one), recording each
                         step's position, sym/outlen/clen/flags word and
-                        second literal; then iterate the chunk entries to a
-                        fixpoint (entry[c] = exit[c-1], entry[0] = p0),
-                        re-walking only lanes whose corrected entry is not
-                        among their recorded positions
+                        second literal, then on unrecorded to the chunk
+                        end; then iterate the chunk entries to a fixpoint
+                        (entry[c] = exit[c-1], entry[0] = p0), re-walking
+                        only lanes whose corrected entry is not among their
+                        recorded positions
   epilogue (torch)      per-lane output byte counts from the records past
                         each lane's converged entry, their exclusive prefix
                         sum (out0), the step trim and the overflow flag,
@@ -28,10 +29,12 @@ chunks and one lane walks each chunk:
 
 Each lane has 8 * maxit step slots (ST = 96).  A stream that needs more
 steps than that in one chunk (under ~5.3 bits a step) sets the overflow
-flag; B3 stops that image at its first converged overflow, and
-decode_kernel8 returns None: the caller decodes the batch on the PK=1
-walk (ops/specdec_tpu.py), which runs the same kernels at worst-case
-capacity, without the stop, through walk_cuda, walk_offsets,
+flag.  The lane still walks on to its chunk end without recording (up to
+CAP steps, the PK=1 walk's rows), so every exit is exact and B3 reaches
+the PK=1 walk's fixpoint; on an overflow decode_kernel8 returns those
+converged entries (resume_seed), and the caller decodes the batch on the
+PK=1 walk (ops/specdec_tpu.py), which runs the same kernels at worst-case
+capacity from them (2 passes), through walk_cuda, walk_offsets,
 finalize_cuda and finish_decode.  The whole walk is one launch; the host
 reads nothing back until the epilogue's single readback.
 
@@ -54,12 +57,15 @@ import functools
 import torch
 
 from .. import kernels as K
+from ..utils import trace
 from .bitpack import MASK32, scatter_packed16
 from .expand import _scratch_bytes, expand, tiling
 
 S = 512           # chunk bits
 MAXIT = 12        # step slots per lane: ST = 8 * maxit (as fpng_tpu's)
 _MEMB = 32        # fixpoint membership window, in steps (as fpng_tpu's)
+CAP = S + 24      # steps a walk takes at most: one a bit, plus the token
+                  # tail (the PK=1 walk's rows, ops/specdec_tpu.ST8)
 INF = 0x7FFFFFFF
 # record rows the epilogue reads at a time: two slabs on walk8, whose
 # temporaries (337 B a lane) stay under one 96-row int32 array (384)
@@ -110,15 +116,17 @@ def _lane_geometry(zl8: torch.Tensor, NC: int):
     return bit0, bit0 < z, torch.minimum(bit0 + S, z)
 
 
-def _walk_plain(words64, lut64, ent, bound, act, posr, raw0, raw1):
+def _walk_plain(words64, lut64, ent, bound, act, posr, raw0, raw1,
+                cap: int = CAP):
     """Walk every lane with `act` set from `ent` until it reaches `bound`,
-    stops on an invalid code, or fills its ST step slots.  Writes the rows
-    of the steps taken; returns (exit, steps taken, still active)."""
+    stops on an invalid code, or has taken `cap` steps.  Writes the rows of
+    its first ST steps (ST = posr.shape[1]); returns (exit, rows written,
+    overflow: the walk did not fit its ST rows)."""
     ST = posr.shape[1]
     nw = words64.shape[1] - 2
     pos = ent.clone()
-    nst = torch.zeros_like(ent)
-    for j in range(ST):
+    n = torch.zeros_like(ent)
+    for j in range(cap):
         if not bool(act.any()):
             break
         wi = torch.clamp(pos >> 5, max=nw)
@@ -130,50 +138,37 @@ def _walk_plain(words64, lut64, ent, bound, act, posr, raw0, raw1):
         clen = (e >> 9) & 15
         nextra = (e >> 13) & 7
         is_m = (sym > 256) & (sym <= 285)
-        extra = (w >> clen) & ((1 << nextra) - 1)
         stop = clen == 0
         l2 = (e >> 25) & 15
         two = (sym < 256) & ~stop & (l2 > 0)
+        if j < ST:
+            extra = (w >> clen) & ((1 << nextra) - 1)
+            run = ((e >> 16) & 0x1FF) + extra
+            outlen = torch.where(sym < 256, 1, torch.where(is_m, run, 0)) + \
+                two.to(torch.int64)
+            r0 = (sym | (~stop).to(torch.int64) << 9 | outlen << 10 |
+                  clen << 19 | is_m.to(torch.int64) << 23)
+            r1 = torch.where(two, ((e >> 16) & 0xFF) | 0x100, 0)
+            posr[:, j] = torch.where(act, pos, posr[:, j])
+            raw0[:, j] = torch.where(act, r0, raw0[:, j])
+            raw1[:, j] = torch.where(act, r1, raw1[:, j])
+        n += act.to(torch.int64)
+        adv = act & ~stop
         tok = clen + torch.where(is_m, nextra + 1, 0) + \
             torch.where(two, l2, 0)
-        run = ((e >> 16) & 0x1FF) + extra
-        outlen = torch.where(sym < 256, 1, torch.where(is_m, run, 0)) + \
-            two.to(torch.int64)
-        r0 = (sym | (~stop).to(torch.int64) << 9 | outlen << 10 | clen << 19 |
-              is_m.to(torch.int64) << 23)
-        r1 = torch.where(two, ((e >> 16) & 0xFF) | 0x100, 0)
-        posr[:, j] = torch.where(act, pos, posr[:, j])
-        raw0[:, j] = torch.where(act, r0, raw0[:, j])
-        raw1[:, j] = torch.where(act, r1, raw1[:, j])
-        nst += act.to(torch.int64)
-        adv = act & ~stop
         pos = torch.where(adv, pos + tok, pos)
         act = adv & (pos < bound)
-    return pos, nst, act
-
-
-def _advance_front(front, done, ent, ex, ovf, live):
-    """The converged front after a pass: lanes below front[b] are final
-    (their entry never changes again).  The lane at the old front is final
-    now, since its predecessor was final a pass earlier; each later lane c
-    is final while entry[c] == exit[c-1].  An image whose newly final lanes
-    include a live overflowing one is done: its overflow is decided."""
-    NC = ent.shape[1]
-    c = torch.arange(NC, device=ent.device)[None]
-    ok = torch.ones_like(live)
-    ok[:, 1:] = ent[:, 1:] == ex[:, :-1]
-    stop = torch.where((c > front[:, None]) & ~ok, c, NC).amin(dim=1)
-    fresh = (c >= front[:, None]) & (c < stop[:, None])
-    return stop, done | (fresh & ovf & live).any(dim=1)
+    return pos, torch.clamp(n, max=ST), (n > ST) | act
 
 
 def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
-                   abort_on_overflow: bool):
+                   seed=None):
     """The walk and fixpoint of kernels B3 and B8 in torch ops, with ST step
-    rows a lane.  Returns walk_fix8's seven outputs and stopped (B,) int32:
-    for an image stopped at its first converged overflow (only with
-    abort_on_overflow), the pass after which it stopped, counting pass 0
-    as 1; 0 for an image that ran on."""
+    rows a lane: walk_fix8's seven outputs.  seed (B, NC) int32, when
+    given, is resume_seed's: pass 0 walks each lane from its entry, or from
+    p where the seed is ~p, and the seed is the walk's entry buffer (it is
+    returned as e_fin).  Without it each lane starts at its chunk boundary,
+    lane 0 at p0."""
     B = words.shape[0]
     NC = n_chunks
     dev = words.device
@@ -184,23 +179,24 @@ def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
     # step-major int64 records: each step's row stays contiguous
     posr, raw0, raw1 = (torch.zeros((B, ST, NC), dtype=torch.int64,
                                     device=dev) for _ in range(3))
-    ent = bit0.expand(B, NC).clone()
-    ent[:, :1] = p0
-    ex, nst, ovf = _walk_plain(words64, lut64, ent, bound,
-                               live & (ent < bound), posr, raw0, raw1)
-    front = torch.zeros(B, dtype=torch.int64, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    stopped = torch.zeros(B, dtype=torch.int32, device=dev)
+    if seed is None:
+        ent = bit0.expand(B, NC).clone()
+        ent[:, :1] = p0
+        start = ent
+    else:
+        s = seed.to(torch.int64)
+        start = torch.where(s < 0, ~s, s)
+    ex, nst, ovf = _walk_plain(words64, lut64, start, bound,
+                               live & (start < bound), posr, raw0, raw1)
+    if seed is not None:  # ~p: the entry is the second literal of row 0
+        ent = torch.where(s < 0, start + ((raw0[:, 0] >> 19) & 15), s)
     passes = 1
-    if abort_on_overflow:
-        front, done = _advance_front(front, done, ent, ex, ovf, live)
-        stopped = torch.where(done & (stopped == 0), passes, stopped)
     M = min(_MEMB, ST)
     rows = torch.arange(M, device=dev)[None, :, None]
     for _ in range(NC + 1):
         passes += 1
         e_new = torch.cat([p0, ex[:, :-1]], dim=1)
-        chg = (e_new != ent) & live & ~done[:, None]
+        chg = (e_new != ent) & live
         if not bool(chg.any()):
             break
         en = e_new[:, None]
@@ -215,20 +211,17 @@ def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
         ex = torch.where(wm, ex2, ex)
         nst = torch.where(wm, nst2, nst)
         ovf = torch.where(wm, ovf2, ovf)
-        if abort_on_overflow:
-            front, done = _advance_front(front, done, ent, ex, ovf, live)
-            stopped = torch.where(done & (stopped == 0), passes, stopped)
     i32 = torch.int32
-    return (ent.to(i32), nst.to(i32), ovf, posr.to(i32), raw0.to(i32),
-            raw1.to(i32), torch.tensor(passes, dtype=i32, device=dev)), \
-        stopped
+    e_fin = ent.to(i32) if seed is None else seed.copy_(ent)
+    return (e_fin, nst.to(i32), ovf, posr.to(i32), raw0.to(i32),
+            raw1.to(i32), torch.tensor(passes, dtype=i32, device=dev))
 
 
 def walk_fix8_plain(words, lut, p0, zl8, *, n_chunks: int,
                     maxit: int = MAXIT):
     """Plain torch version of kernel B3 (same contract as walk_fix8)."""
     return fixpoint_plain(words, lut, p0, zl8, n_chunks=n_chunks,
-                          ST=8 * maxit, abort_on_overflow=True)[0]
+                          ST=8 * maxit)
 
 
 def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
@@ -243,11 +236,10 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
     of walk passes as a 0-dim int32 tensor on the input's device (pass 0
     plus every fixpoint pass, the last of which finds no change).
 
-    An image stops at its first converged overflow: once a lane that can
-    no longer change (every lane before it converged) has overflowed, the
-    image's overflow is decided and its lanes stop re-walking.  On such an
-    image only the overflow flags are defined; every other image runs on
-    to convergence, so its outputs do not depend on the abort.
+    A lane that overflows its rows walks on unrecorded (up to CAP steps),
+    so its exit is exact: every image runs to the fixpoint of the PK=1
+    walk (ops/specdec_tpu.walk_fix), in the same passes and to the same
+    converged entries; only an overflowing lane's records are cut short.
 
     A CUDA tensor launches csrc/walk8.cu once for the whole walk; nothing
     is read back.  `walk_fix8.launches` counts the launches and
@@ -257,7 +249,7 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
         return walk_fix8_plain(words, lut, p0, zl8, n_chunks=n_chunks,
                                maxit=maxit)
     out = walk_cuda("walk_fix8", words, lut, p0, zl8, n_chunks=n_chunks,
-                    ST=8 * maxit, abort_on_overflow=True)
+                    ST=8 * maxit)
     walk_fix8.launches += 1
     return out
 
@@ -267,31 +259,39 @@ walk_fix8.passes = 0
 
 
 def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
-              abort_on_overflow: bool):
-    """Run csrc/walk8.cu's walk and fixpoint with ST step rows a lane, in
-    one cooperative launch (walk_fix8's contract; the stop at the first
-    converged overflow only with abort_on_overflow).  The launch's grid,
-    blocks per SM and shared-memory LUT slots are left in
-    `walk_cuda.launch`."""
-    K.require_cuda(name, words, lut, p0, zl8)
+              seed=None):
+    """Run csrc/walk8.cu's walk and fixpoint with ST <= CAP step rows a
+    lane, in one cooperative launch (walk_fix8's contract).  seed (B, NC)
+    int32 contiguous, when given, is resume_seed's and the walk's entry
+    buffer: the walk reads its seeds from it, writes its entries into it
+    and returns it as e_fin, so a resumed walk holds no more than a fresh
+    one.  The launch's grid, blocks per SM and shared-memory LUT slots are
+    left in `walk_cuda.launch`."""
+    tensors = (words, lut, p0, zl8) + (() if seed is None else (seed,))
+    K.require_cuda(name, *tensors)
     B, nw = words.shape
     NC = n_chunks
     if lut.shape != (B, 4096) or p0.shape != (B,) or zl8.shape != (B,):
         raise ValueError(f"{name}: lut (B, 4096), p0 and zl8 (B,)")
+    if seed is not None and (seed.shape != (B, NC) or
+                             seed.dtype != torch.int32 or
+                             not seed.is_contiguous()):
+        raise ValueError(f"{name}: seed (B, n_chunks) int32, contiguous")
+    if not 0 < ST <= CAP:
+        raise ValueError(f"{name}: ST outside (0, {CAP}]")
     if (NC + 1) * S >= 1 << 31:
         raise ValueError(f"{name}: stream too long for int32 positions")
     dev = words.device
     posr, raw0, raw1 = (torch.empty((B, ST, NC), dtype=torch.int32,
                                     device=dev) for _ in range(3))
-    ent, nst, ovf, ex0, ex1 = (torch.empty((B, NC), dtype=torch.int32,
-                                           device=dev) for _ in range(5))
-    # changed flags (3), passes, then per image three front slots of the
-    # new front and the first overflow, and the stop flag
-    ctl = torch.zeros(4 + 7 * B, dtype=torch.int32, device=dev)
+    nst, ovf, ex0, ex1 = (torch.empty((B, NC), dtype=torch.int32,
+                                      device=dev) for _ in range(4))
+    ent = torch.empty_like(nst) if seed is None else seed
+    ctl = torch.zeros(4, dtype=torch.int32, device=dev)  # flags, passes
     info = (ctypes.c_int * 3)()
     K.check(K.lib().fpng_walk8(
         words.data_ptr(), nw, lut.data_ptr(), p0.data_ptr(), zl8.data_ptr(),
-        B, NC, ST, int(abort_on_overflow), ent.data_ptr(), ex0.data_ptr(),
+        B, NC, ST, int(seed is not None), ent.data_ptr(), ex0.data_ptr(),
         ex1.data_ptr(), nst.data_ptr(), ovf.data_ptr(), posr.data_ptr(),
         raw0.data_ptr(), raw1.data_ptr(), ctl.data_ptr(),
         ctypes.addressof(info), K.stream_ptr(dev)), "fpng_walk8")
@@ -300,6 +300,29 @@ def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
 
 
 walk_cuda.launch = None
+
+
+def resume_seed(posr, raw0, raw1, nst, e_fin):
+    """The seed of a walk that resumes from a converged one (B, NC) int32:
+    each lane's converged entry, or ~p where that entry is the second
+    literal of a literal pair its last walk recorded at p.  A walk from
+    such an entry would pair the literals after it otherwise and could exit
+    a literal away from the converged exit; from p it retraces the last
+    walk.  The pair lies within the membership window (_MEMB rows), read
+    _MEMB // 4 rows at a time."""
+    seed = e_fin.clone()
+    e3, n3 = e_fin[:, None], nst[:, None]
+    M = min(_MEMB, posr.shape[1])
+    R = _MEMB // 4
+    for j in range(0, M, R):
+        p = posr[:, j:j + R]
+        rows = torch.arange(j, j + p.shape[1], device=p.device)[:, None]
+        pair = (raw1[:, j:j + R] != 0) & (rows < n3) & \
+            (((raw0[:, j:j + R] >> 19) & 15) + p == e3)
+        torch.where(pair.any(dim=1),
+                    torch.sum(p * pair, dim=1, dtype=torch.int32)
+                    .bitwise_not_(), seed, out=seed)
+    return seed
 
 
 # ---------------------------------------------------------------------------
@@ -540,10 +563,14 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
     """walk8 decode of B same-shape fpng dynamic-block streams.
 
     Same inputs as ops/specdec.decode_kernel.  Returns (imgs (B, h, w, c)
-    uint8, ok (B,) bool), or None when a lane overflowed its step
-    capacity (the caller decodes the batch on the PK=1 walk).  One
-    device->host readback: steps, passes (added to walk_fix8.passes) and
-    the overflow flags.
+    uint8, ok (B,) bool, seed): seed is None when every lane fitted its
+    step rows; when one overflowed, imgs and ok are None and seed is
+    resume_seed of the converged entries - the PK=1 walk's fixpoint - for
+    the caller to decode the batch on the PK=1 walk from; the records are
+    freed on return.  One device->host readback: steps, passes (added to
+    walk_fix8.passes and, in a traced call, to the counters
+    decoder.walk8_passes and decoder.walk8_walks, utils/trace.py) and the
+    overflow flags.
     """
     records, e_fin, out0, steps, ovf, passes = decode_walk8(
         stream, lut, p0, zlib_len, n_chunks=n_chunks(zlib_len_max),
@@ -551,11 +578,13 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
     diag = torch.cat([steps.view(1).to(torch.int32), passes.view(1),
                       ovf.to(torch.int32)]).cpu()
     walk_fix8.passes += int(diag[1])
+    trace.count("decoder.walk8_walks")
+    trace.count("decoder.walk8_passes", int(diag[1]))
     if bool(diag[2:].any()):
-        return None
+        return None, None, resume_seed(*records, e_fin)
     k8 = trim_steps(int(diag[0]), records[0].shape[1])
-    return finish_decode(finalize_records8, records, e_fin, out0, zlib_len,
-                         k8=k8, h=h, w=w, c=c)
+    return (*finish_decode(finalize_records8, records, e_fin, out0, zlib_len,
+                           k8=k8, h=h, w=w, c=c), None)
 
 
 def _block(n: int) -> int:
@@ -571,7 +600,9 @@ def decode_bytes(B: int, NC: int, ST: int, h: int, bpl: int, *,
     decode_kernel8 with ST = 8 * MAXIT, decode_kernel_pk1 with ST8, over
     NC = n_chunks(zlib_len_max) lanes of rasters h x bpl.  Its packed
     inputs, already on the card, are not counted.  With finish=False, only
-    the walk and the epilogue (a walk8 attempt that overflows).
+    the walk and the epilogue (a walk8 attempt that overflows).  A PK=1
+    decode that resumes from walk8 holds no more: its seed is its walk's
+    entry buffer (walk_cuda).
 
     The stages, each the buffers it holds at once (walk_cuda,
     walk_offsets, finalize_cuda, scatter_packed16, expand):

@@ -97,9 +97,10 @@ def _zlib_len(png: bytes) -> int:
 def traced_calls(torch):
     """Record each walk decode that models/decoder.py launches inside the
     block: a list of dicts with the tier, the images, the lanes, whether
-    it finished (a walk8 decode that overflows does not), the peak device
-    bytes over what was allocated when it started, and the absolute peak.
-    Peaks are reset at each call."""
+    it finished (a walk8 decode that overflows does not: it returns its
+    converged entries in place of images, or None in older checkouts), the
+    peak device bytes over what was allocated when it started, and the
+    absolute peak.  Peaks are reset at each call."""
     from ..models import decoder as TD
     from ..ops.walk8 import n_chunks
 
@@ -115,7 +116,9 @@ def traced_calls(torch):
             top = torch.cuda.max_memory_allocated()
             calls.append(dict(tier=tier, images=int(sj.shape[0]),
                               lanes=n_chunks(zlib_len_max),
-                              finished=out is not None, peak=top - start,
+                              finished=out is not None and
+                              out[0] is not None,
+                              peak=top - start,
                               top=top))
             return out
         return run

@@ -44,12 +44,12 @@ def stages(size: int = 512, B: int = 32, device="cuda") -> dict:
     for name, fn, walk in (("pk1", pk1, PK.walk_fix),
                            ("walk8", walk8, W.walk_fix8)):
         n0 = walk.passes
-        out = fn()
+        imgs, ok = fn()[:2]
         t[f"{name}_passes"] = walk.passes - n0
-        if out is None:
+        if imgs is None:  # walk8 overflowed: it returned its entries
             raise RuntimeError(f"prof_walk8: {name} overflowed")
-        if not bool(out[1].all()) or \
-                not np.array_equal(out[0].cpu().numpy(), kept):
+        if not bool(ok.all()) or \
+                not np.array_equal(imgs.cpu().numpy(), kept):
             raise RuntimeError(f"prof_walk8: {name} decode mismatch")
     t["pk1_all"] = chain(pk1)
     t["pk1_walk"] = chain(lambda: W.walk_offsets(

@@ -158,9 +158,9 @@ def stages(size: int = 512, B: int = 32, device="cuda") -> dict:
         return W.decode_kernel8(sj, lj, pj, zj, h=H, w=Wd, c=Cc,
                                 zlib_len_max=zmax)
 
-    out = dec_all()
-    if out is None or not bool(out[1].all()) or \
-            not np.array_equal(out[0].cpu().numpy(), kept):
+    imgs_d, ok, _ = dec_all()
+    if imgs_d is None or not bool(ok.all()) or \
+            not np.array_equal(imgs_d.cpu().numpy(), kept):
         raise RuntimeError("profile_kernels: walk8 decode mismatch")
     t["dec_all"] = chain(dec_all)
     nc = W.n_chunks(zmax)

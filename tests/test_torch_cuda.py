@@ -284,10 +284,11 @@ def test_walk8_kernels_match_plain(case):
         for g, w_ in zip(gk, wk):
             assert torch.equal(g.cpu(), w_)
 
-    out = W.decode_kernel8(stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda(),
-                           h=h, w=w, c=c, zlib_len_max=int(zl.max()))
-    assert out is not None and bool(out[1].all())
-    assert np.array_equal(out[0].cpu().numpy(), imgs)
+    got, ok, seed = W.decode_kernel8(stream.cuda(), luts.cuda(), p0.cuda(),
+                                     zl.cuda(), h=h, w=w, c=c,
+                                     zlib_len_max=int(zl.max()))
+    assert seed is None and bool(ok.all())
+    assert np.array_equal(got.cpu().numpy(), imgs)
 
 
 @pytest.mark.parametrize("c,h,w", [
@@ -379,11 +380,24 @@ def _overflowing_batch():
         pack_streams(metas), (np.uint8, np.int32, np.int32, np.int32))]
 
 
+def _walk_equal(got, want):
+    """A walk's outputs on the card equal the plain version's: e_fin, nst,
+    ovf and passes, and the records up to each lane's nst."""
+    assert int(got[6]) == int(want[6])
+    for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf
+        assert torch.equal(g.cpu(), w_)
+    rows = torch.arange(got[3].shape[1])[None, :, None] < want[1][:, None]
+    for g, w_ in zip(got[3:6], want[3:6]):
+        assert torch.equal(torch.where(rows, g.cpu(), 0),
+                           torch.where(rows, w_, 0))
+
+
 def test_walk8_stops_an_overflowing_image_beside_a_converging_one():
-    """B3 on the batch whose image 0 overflows walk8: the kernel stops it at
-    its first converged overflow as the plain version does (same overflow
-    flags, same passes) and gives image 1, which converges, every output
-    of the plain version."""
+    """B3 on the batch whose image 0 overflows walk8: the kernel's
+    overflowing lanes walk on past their rows, unrecorded, as the plain
+    version's do, so every output of both images is the plain version's
+    (same overflow flags, same passes), and the converged entries and
+    passes are B8's."""
     _, _, (stream, luts, p0, zl) = _overflowing_batch()
     nc = W.n_chunks(int(zl.max()))
     words, zl8 = W.stream_words(stream), zl * 8
@@ -392,27 +406,57 @@ def test_walk8_stops_an_overflowing_image_beside_a_converging_one():
                       n_chunks=nc)
     torch.cuda.synchronize()
     assert W.walk_fix8.launches == n0 + 1
-    want, stopped = W.fixpoint_plain(words, luts, p0, zl8, n_chunks=nc,
-                                     ST=8 * W.MAXIT, abort_on_overflow=True)
-    assert (stopped > 0).tolist() == [True, False]
-    assert int(got[6]) == int(want[6])
+    want = W.walk_fix8_plain(words, luts, p0, zl8, n_chunks=nc)
     live = W._lane_geometry(zl8, nc)[1]
-    assert torch.equal((got[2].cpu() & live).any(dim=1),
-                       (want[2] & live).any(dim=1))
-    for g, w_ in zip(got[:3], want[:3]):  # e_fin, nst, ovf of image 1
-        assert torch.equal(g[1].cpu(), w_[1])
-    rows = torch.arange(8 * W.MAXIT)[:, None] < want[1][1][None]
-    for g, w_ in zip(got[3:6], want[3:6]):
-        assert torch.equal(torch.where(rows, g[1].cpu(), 0),
-                           torch.where(rows, w_[1], 0))
+    assert (want[2] & live).any(dim=1).tolist() == [True, False]
+    _walk_equal(got, want)
+    b8 = PK.walk_fix_plain(words, luts, p0, zl8, n_chunks=nc)
+    assert torch.equal(got[0].cpu(), b8[0]) and int(got[6]) == int(b8[6])
+
+
+@pytest.mark.parametrize("maxit", [2, W.MAXIT])
+def test_walk8_unrecorded_tail_matches_plain(maxit):
+    """B3's walk past its rows on the card, against the plain version: at
+    maxit = 2 (16 rows) most lanes of the 2-pass tiles walk on unrecorded,
+    and their exits decide the fixpoint."""
+    _, _, (stream, luts, p0, zl) = _overflowing_batch()
+    nc = W.n_chunks(int(zl.max()))
+    args = (W.stream_words(stream), luts, p0, zl * 8)
+    got = W.walk_fix8(*(a.cuda() for a in args), n_chunks=nc, maxit=maxit)
+    want = W.walk_fix8_plain(*args, n_chunks=nc, maxit=maxit)
+    assert bool(want[2].any())
+    _walk_equal(got, want)
+
+
+def test_seeded_pk1_walk_matches_plain():
+    """B8 seeded with B3's converged entries (resume_seed), on the card:
+    the plain version's outputs, 2 passes, the unseeded B8's entries, and
+    the seed's own memory as its entries."""
+    _, _, (stream, luts, p0, zl) = _overflowing_batch()
+    nc = W.n_chunks(int(zl.max()))
+    args = (W.stream_words(stream), luts, p0, zl * 8)
+    cargs = [a.cuda() for a in args]
+    b3 = W.walk_fix8(*cargs, n_chunks=nc)
+    seed = W.resume_seed(*b3[3:6], b3[1], b3[0])
+    want = PK.walk_fix_plain(*args, n_chunks=nc, seed=seed.cpu())
+    n0 = PK.walk_fix.launches
+    got = PK.walk_fix(*cargs, n_chunks=nc, seed=seed)
+    torch.cuda.synchronize()
+    assert PK.walk_fix.launches == n0 + 1
+    assert got[0] is seed
+    _walk_equal(got, want)
+    assert int(got[6]) == 2
+    assert torch.equal(got[0], PK.walk_fix(*cargs, n_chunks=nc)[0])
 
 
 def test_pk1_kernels_match_plain():
     imgs, _, (stream, luts, p0, zl) = _overflowing_batch()
     B, h, w, c = imgs.shape
     nc = W.n_chunks(int(zl.max()))
-    assert W.decode_kernel8(stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda(),
-                            h=h, w=w, c=c, zlib_len_max=int(zl.max())) is None
+    got8, _, seed = W.decode_kernel8(
+        stream.cuda(), luts.cuda(), p0.cuda(), zl.cuda(), h=h, w=w, c=c,
+        zlib_len_max=int(zl.max()))
+    assert got8 is None and seed is not None  # overflow: its entries
     words, zl8 = W.stream_words(stream), zl * 8
     n0 = PK.walk_fix.launches
     got = PK.walk_fix(words.cuda(), luts.cuda(), p0.cuda(), zl8.cuda(),

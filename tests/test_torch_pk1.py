@@ -32,6 +32,7 @@ from fpng_tpu_torch.ops import specdec_tpu as TS
 from fpng_tpu_torch.ops import walk8 as TW
 from fpng_tpu_torch.ops.bitpack import scatter_packed16
 from fpng_tpu_torch.train import synthetic_corpus
+from fpng_tpu_torch.utils import trace
 from tests.test_torch_walk8 import _jacobi_reference, _pack, _walk_args
 
 LPI = 128
@@ -193,9 +194,9 @@ def test_decode_batch_takes_pk1(chains, walk8, monkeypatch):
 
 
 def test_pk1_plain_walk_runs_every_image_to_convergence(chains):
-    """B8's plain walk has no stop at the first converged overflow: on the
-    batch whose image 0 overflows walk8 it gives the Jacobi loop's outputs
-    and pass count at ST8 rows, for both images."""
+    """B8's plain walk runs every image to convergence: on the batch whose
+    image 0 overflows walk8 it gives the Jacobi loop's outputs and pass
+    count at ST8 rows, for both images."""
     _, _, packed, _, t = chains
     words, lut, p0, zl8, nc = _walk_args(packed)
     got = TS.walk_fix(words, lut, p0, zl8, n_chunks=nc)
@@ -203,3 +204,66 @@ def test_pk1_plain_walk_runs_every_image_to_convergence(chains):
     assert int(got[6]) == ref[6] == int(t["passes"])
     for a, b in zip(got[:6], ref[:6]):
         assert torch.equal(a, b)
+
+
+def test_pk1_resumed_from_walk8_entries_matches_the_unseeded_walk(chains):
+    """B8 seeded with B3's converged entries (what decode_kernel8 returns
+    on this batch's overflow) reads 2 passes to the unseeded walk's
+    entries and offsets, and finish_decode gives the same check triple and
+    pixels - the port's unseeded chain's and fpng_tpu's."""
+    imgs, _, packed, j, t = chains
+    args = [torch.from_numpy(a) for a in packed]
+    imgs8, ok8, seed = TW.decode_kernel8(*args, h=32, w=32, c=4,
+                                         zlib_len_max=int(packed[3].max()))
+    assert imgs8 is None and ok8 is None and seed.dtype == torch.int32
+    records, e_fin, out0, steps, _, passes = TW.walk_offsets(
+        functools.partial(TS.walk_fix, seed=seed), *args, n_chunks=t["nc"])
+    assert int(passes) == 2 < int(t["passes"])
+    assert np.array_equal(e_fin.numpy(), t["e_fin"])
+    assert np.array_equal(out0.numpy(), t["out0"])
+    live = j["live"][:, :t["nc"]]
+    for key, got in (("e_fin", e_fin), ("out0", out0)):
+        assert np.array_equal(np.where(live, got.numpy(), 0),
+                              np.where(live, j[key][:, :t["nc"]], 0)), key
+    k8 = TW.trim_steps(int(steps), TS.ST8)
+    assert 8 * TW.MAXIT < k8 <= TW.trim_steps(t["steps"], TS.ST8)
+    _, _, chk = TS.finalize_records(*records, e_fin, out0, k8=k8, h=32,
+                                    bpl=128, c=4)
+    assert np.array_equal(chk.numpy(), t["chk"])
+    assert np.array_equal(chk.numpy().astype(np.int64),
+                          j["chk"].astype(np.int64))
+    got, ok = TW.finish_decode(TS.finalize_records, records, e_fin, out0,
+                               args[3], k8=k8, h=32, w=32, c=4)
+    assert bool(ok.all()) and np.array_equal(got.numpy(), imgs)
+    assert np.array_equal(ok.numpy(), j["ok"])
+    assert np.array_equal(got.numpy(), j["imgs"])
+
+
+@pytest.mark.parametrize("walk8", ["1", "0"])
+def test_decode_batch_resumes_pk1_from_walk8(chains, walk8, monkeypatch):
+    """A traced decode_batch: after walk8's overflow the PK=1 walk resumes
+    from walk8's entries (decoder.pk1_resumed 1, 2 passes); with
+    FPNG_TPU_WALK8=0 it starts from the chunk boundaries, unseeded, in the
+    unseeded walk's passes.  The pixels are the input's either way."""
+    monkeypatch.setenv("FPNG_TPU_WALK8", walk8)
+    monkeypatch.setattr(TD.decode_batch, "spans", {})  # traced
+    imgs, pngs, _, _, t = chains
+    trace.reset()
+    try:
+        sts, outs = T.decode_batch(pngs, 4, device="cpu")
+        cnt = trace.snapshot()["counters"]
+    finally:
+        trace.reset()
+    assert sts == [0, 0]
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    assert cnt["decoder.pk1_walks"] == 1
+    if walk8 == "1":
+        assert cnt["decoder.pk1_resumed"] == 1
+        assert cnt["decoder.pk1_passes"] == 2
+        # B3 walked the whole fixpoint: the unseeded PK=1 walk's passes
+        assert cnt["decoder.walk8_walks"] == 1
+        assert cnt["decoder.walk8_passes"] == int(t["passes"])
+    else:
+        assert "decoder.pk1_resumed" not in cnt
+        assert "decoder.walk8_walks" not in cnt
+        assert cnt["decoder.pk1_passes"] == int(t["passes"]) > 2

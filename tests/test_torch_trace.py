@@ -23,6 +23,7 @@ import fpng_tpu_torch as T
 from fpng_tpu_torch import golden, graft_entry
 from fpng_tpu_torch.models import decoder as TD
 from fpng_tpu_torch.ops import specdec_tpu as TS
+from fpng_tpu_torch.ops import walk8 as TW
 from fpng_tpu_torch.parallel import mesh as TM
 from fpng_tpu_torch.train import synthetic_corpus
 from fpng_tpu_torch.utils import trace
@@ -196,9 +197,13 @@ def _add_up(snap, tree, calls, more):
 def test_registry_totals_self_and_counts_add_up(monkeypatch, fresh, pngs,
                                                 tiles):
     monkeypatch.setattr(TD.decode_batch, "spans", {})
+    passes8 = TW.walk_fix8.passes
     T.decode_batch(pngs, 3, device="cpu")  # traced: spans is a dict
     snap = trace.snapshot()
-    assert snap["calls"] == {"decode_batch": 1} and snap["counters"] == {}
+    assert snap["calls"] == {"decode_batch": 1}
+    assert snap["counters"] == {  # one walk8 walk, no PK=1
+        "decoder.walk8_walks": 1,
+        "decoder.walk8_passes": TW.walk_fix8.passes - passes8}
     sp = _add_up(snap, DECODE_TREE, 1, {"transfer.stage": 4})
     dev = sp["decoder.device"]
     assert dev["total_s"] - dev["self_s"] == pytest.approx(
@@ -226,7 +231,7 @@ def test_pk1_tier_counts_its_passes_and_its_card_time(monkeypatch, fresh,
                                                       pk1_pngs):
     imgs, pk1 = pk1_pngs
     want = T.decode_batch(pk1, 4, device="cpu")
-    passes = TS.walk_fix.passes
+    passes, passes8 = TS.walk_fix.passes, TW.walk_fix8.passes
     prof, seen = _session(monkeypatch)
     with prof:
         got = T.decode_batch(pk1, 4, device="cpu")
@@ -238,6 +243,8 @@ def test_pk1_tier_counts_its_passes_and_its_card_time(monkeypatch, fresh,
     assert sp["decoder.walk8"]["count"] == sp["decoder.pk1"]["count"] == 1
     assert cnt["decoder.pk1_walks"] == 1
     assert cnt["decoder.pk1_passes"] == TS.walk_fix.passes - passes > 0
+    assert cnt["decoder.walk8_walks"] == 1
+    assert cnt["decoder.walk8_passes"] == TW.walk_fix8.passes - passes8 > 0
     # the card clock's pairs leave out the host's wait for the passes, so
     # they cover less than the tier's span, but most of it
     assert 0.5 * sp["decoder.pk1"]["total_s"] < cnt["decoder.pk1_card_s"] \
@@ -281,7 +288,8 @@ SNAP = {"calls": {"decode_batch": 4, "encode_batch": 5},
                   "transfer.stage": {"count": 30, "total_s": 0.09,
                                      "self_s": 0.09}},
         "counters": {"decoder.pk1_card_s": 0.4, "decoder.pk1_walks": 4,
-                     "decoder.pk1_passes": 3844}}
+                     "decoder.pk1_passes": 3844, "decoder.walk8_walks": 8,
+                     "decoder.walk8_passes": 7688}}
 
 
 @pytest.mark.parametrize("metric,op,want", [
@@ -292,7 +300,9 @@ SNAP = {"calls": {"decode_batch": 4, "encode_batch": 5},
     ("decoder.pk1_card_ms", "decode", 100.0),
     ("decoder.pk1_card_ms", "encode", None),
     ("decoder.pk1_passes", "decode", 961.0),
-    ("decoder.pk1_passes", "encode", None)])
+    ("decoder.pk1_passes", "encode", None),
+    ("decoder.walk8_passes", "decode", 961.0),
+    ("decoder.walk8_passes", "encode", None)])
 def test_readers_of_the_registry(monkeypatch, metric, op, want):
     monkeypatch.setattr(trace, "snapshot", lambda: SNAP)
     got = _reader(metric)({"op": op})
@@ -301,7 +311,8 @@ def test_readers_of_the_registry(monkeypatch, metric, op, want):
 
 @pytest.mark.parametrize("metric", ["encoder.host_ms", "transfer.stage_ms",
                                     "decoder.pk1_card_ms",
-                                    "decoder.pk1_passes"])
+                                    "decoder.pk1_passes",
+                                    "decoder.walk8_passes"])
 def test_readers_find_nothing_without_calls_or_a_registry(monkeypatch,
                                                           metric):
     read = _reader(metric)

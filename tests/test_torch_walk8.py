@@ -29,6 +29,7 @@ from fpng_tpu.ops.bitpack import scatter_packed16_tpu
 from fpng_tpu.ops.specdec_tpu import _bpl_pad, expand_tpu
 from fpng_tpu_torch import golden
 from fpng_tpu_torch.models import decoder as TD
+from fpng_tpu_torch.ops import specdec_tpu as TS
 from fpng_tpu_torch.ops import walk8 as TW
 from fpng_tpu_torch.train import synthetic_corpus
 
@@ -126,10 +127,12 @@ def _port_chain(stream, luts, p0, zl, *, h, w, c, maxit=TW.MAXIT):
         *args, n_chunks=nc, maxit=maxit)
     res = dict(e_fin=e_fin.numpy(), out0=out0.numpy(), ovf=bool(ovf.any()),
                nc=nc, passes=passes)
-    out = TW.decode_kernel8(*args, h=h, w=w, c=c,
-                            zlib_len_max=int(zl.max()), maxit=maxit)
-    assert (out is None) == res["ovf"]
-    if out is None:
+    *out, seed = TW.decode_kernel8(*args, h=h, w=w, c=c,
+                                   zlib_len_max=int(zl.max()), maxit=maxit)
+    assert (seed is not None) == res["ovf"]
+    if res["ovf"]:  # the seed PK=1 resumes from
+        assert out == [None, None]
+        assert torch.equal(seed, TW.resume_seed(*records, e_fin))
         return res
     k8 = TW.trim_steps(int(steps), records[0].shape[1])
     meta, metb, _ = TW.finalize_records8(*records, e_fin, out0, k8=k8, h=h,
@@ -201,9 +204,11 @@ def test_overflow_flag_matches_jax():
 
 
 def _jacobi_reference(words, lut, p0, zl8, *, n_chunks, ST):
-    """The walk and fixpoint as a plain Jacobi loop with no converged front
-    and no stop: entry[c] = exit[c-1] until nothing changes, re-walking a
-    lane whose new entry is not among its first 32 recorded positions."""
+    """The walk and fixpoint as a plain Jacobi loop whose walks stop at
+    their ST rows, as fpng_tpu's kernels do (an overflowing lane's exit is
+    then short of its chunk end): entry[c] = exit[c-1] until nothing
+    changes, re-walking a lane whose new entry is not among its first 32
+    recorded positions."""
     B, NC = words.shape[0], n_chunks
     words64 = torch.nn.functional.pad(words.to(torch.int64) & TW.MASK32,
                                       (0, 2))
@@ -215,7 +220,8 @@ def _jacobi_reference(words, lut, p0, zl8, *, n_chunks, ST):
     ent = bit0.expand(B, NC).clone()
     ent[:, :1] = p0
     ex, nst, ovf = TW._walk_plain(words64, lut64, ent, bound,
-                                  live & (ent < bound), posr, raw0, raw1)
+                                  live & (ent < bound), posr, raw0, raw1,
+                                  cap=ST)
     passes, M = 1, min(32, ST)
     rows = torch.arange(M)[None, :, None]
     for _ in range(NC + 1):
@@ -231,7 +237,8 @@ def _jacobi_reference(words, lut, p0, zl8, *, n_chunks, ST):
         ent = torch.where(chg, e_new, ent)
         wm = chg & ~member
         ex2, nst2, ovf2 = TW._walk_plain(words64, lut64, ent, bound,
-                                         wm & (ent < bound), posr, raw0, raw1)
+                                         wm & (ent < bound), posr, raw0, raw1,
+                                         cap=ST)
         ex = torch.where(wm, ex2, ex)
         nst = torch.where(wm, nst2, nst)
         ovf = torch.where(wm, ovf2, ovf)
@@ -262,14 +269,14 @@ def _front_case(name):
 
 @pytest.mark.parametrize("case", ["rgb_1pass", "rgba_2pass", "multiblock"])
 def test_front_rule_leaves_converging_walks_unchanged(case):
-    """On streams that fit walk8, the walk with the converged front and the
-    stop gives exactly the Jacobi loop's outputs and pass count."""
+    """On streams that fit walk8, the walk whose lanes walk on past their
+    rows to exact exits gives exactly the outputs and pass count of the
+    Jacobi loop whose walks stop at their rows (fpng_tpu's)."""
     words, lut, p0, zl8, nc = _walk_args(_front_case(case))
-    out, stopped = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc,
-                                     ST=8 * TW.MAXIT, abort_on_overflow=True)
+    out = TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc)
     ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc,
                             ST=8 * TW.MAXIT)
-    assert not stopped.any() and not any(_image_ovf(ref, zl8))
+    assert not any(_image_ovf(out, zl8)) and not any(_image_ovf(ref, zl8))
     assert int(out[6]) == ref[6] > 1
     for a, b in zip(out[:6], ref[:6]):
         assert torch.equal(a, b)
@@ -286,22 +293,38 @@ def _jax_walk8_ovf(packed, maxit=JW.MAXIT):
     return bool(int(diag) & (1 << 30))
 
 
+def _resumes_pk1(words, lut, p0, zl8, nc, maxit=TW.MAXIT):
+    """B3's plain walk at 8 * maxit rows and B8's at ST8 on the same
+    input: B3's converged entries and passes are B8's, bit for bit, and
+    B8 seeded with them (resume_seed) reads 2 passes to the same entries.
+    Returns B3's outputs."""
+    out = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc, ST=8 * maxit)
+    pk1 = TS.walk_fix_plain(words, lut, p0, zl8, n_chunks=nc)
+    assert torch.equal(out[0], pk1[0]) and int(out[6]) == int(pk1[6])
+    seed = TW.resume_seed(*out[3:6], out[1], out[0])
+    seeded = TS.walk_fix_plain(words, lut, p0, zl8, n_chunks=nc, seed=seed)
+    assert torch.equal(seeded[0], pk1[0]) and int(seeded[6]) == 2
+    return out
+
+
 def test_overflowing_image_stops_beside_a_converging_one():
     """[tiles[6], tiles[9]] (2-pass, 4 channels): image 0 overflows walk8.
-    It stops at its first converged overflow after 2 passes, where the
-    Jacobi loop runs 16; image 1 runs to convergence, and its
-    entries, offsets and pixels equal its decode on its own."""
+    Its overflowing lanes walk on to their chunk ends, so B3 converges in
+    the PK=1 walk's 3 passes to the PK=1 walk's entries, where the Jacobi
+    loop whose walks stop at their rows runs 16; the image overflow flags
+    are the Jacobi loop's and fpng_tpu's.  Image 1 fits: every output is
+    the Jacobi loop's, and its entries, offsets and pixels equal its decode
+    on its own."""
     tiles = list(synthetic_corpus(4, size=32))
     imgs = np.stack([tiles[6], tiles[9]])
     pngs = [golden.encode_image_to_memory(i, 32, 32, 4, T.FPNG_ENCODE_SLOWER)
             for i in imgs]
     packed = _pack(pngs)
     words, lut, p0, zl8, nc = _walk_args(packed)
-    out, stopped = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc,
-                                     ST=8 * TW.MAXIT, abort_on_overflow=True)
+    out = _resumes_pk1(words, lut, p0, zl8, nc)
     ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc,
                             ST=8 * TW.MAXIT)
-    assert stopped.tolist() == [2, 0] and int(out[6]) == 3 and ref[6] == 16
+    assert int(out[6]) == 3 and ref[6] == 16
     assert _image_ovf(out, zl8) == _image_ovf(ref, zl8) == [True, False]
     for a, b in zip(out[:6], ref[:6]):
         assert torch.equal(a[1], b[1])
@@ -325,14 +348,15 @@ def test_overflowing_image_stops_beside_a_converging_one():
     assert bool(ok.all()) and np.array_equal(got.numpy(), imgs[1:])
 
 
-@pytest.mark.parametrize("case, stop, ref_passes",
+@pytest.mark.parametrize("case, n_ovf, ref_passes",
                          [("maxit2", 1, 11), ("binary", 1, 44)])
-def test_overflowing_walk_stops(case, stop, ref_passes):
+def test_overflowing_walk_stops(case, n_ovf, ref_passes):
     """test_overflow_flag_matches_jax's input at maxit=2, and a 2-pass
     image of bytes in {0, 1} (chip_smoke.py's overflow image, 16 rows):
-    the walk stops the image at its first converged overflow after `stop`
-    passes, where the Jacobi loop runs `ref_passes`, with the overflow flag
-    of the Jacobi loop and of fpng_tpu's walk8."""
+    the walk's overflowing lanes walk on to exact exits, so B3 reaches the
+    PK=1 walk's entries in its passes, where the Jacobi loop whose walks
+    stop at their rows cascades through `ref_passes`; its n_ovf overflowing
+    image is flagged as by the Jacobi loop and fpng_tpu's walk8."""
     if case == "maxit2":
         rng = np.random.default_rng(3)
         img = np.cumsum(rng.integers(0, 2, (32, 32, 3)), axis=0) \
@@ -346,12 +370,36 @@ def test_overflowing_walk_stops(case, stop, ref_passes):
     packed = _pack([golden.encode_image_to_memory(
         img, w, h, 3, T.FPNG_ENCODE_SLOWER)])
     words, lut, p0, zl8, nc = _walk_args(packed)
-    out, stopped = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc,
-                                     ST=8 * maxit, abort_on_overflow=True)
+    out = _resumes_pk1(words, lut, p0, zl8, nc, maxit)
     ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc, ST=8 * maxit)
-    assert stopped.tolist() == [stop] and ref[6] == ref_passes
-    assert _image_ovf(out, zl8) == _image_ovf(ref, zl8) == [True]
+    assert ref[6] == ref_passes > int(out[6])
+    assert _image_ovf(out, zl8) == _image_ovf(ref, zl8) == [True] * n_ovf
     assert _jax_walk8_ovf(packed, maxit)
+
+
+def test_resume_seed_walks_a_second_literal_entry_from_its_pair():
+    """synthetic_corpus(4, 256)[4], 1-pass (a colour ramp under an alpha
+    ramp), overflows walk8, and many of B3's converged entries are the
+    second literal of a literal pair.  B8 seeded with the bare entries
+    walks from them, pairs the literals after them otherwise and needs
+    more passes, to other entries; resume_seed starts those lanes at the
+    pair (~p), so B8 reads 2 passes to the unseeded B8's entries, and the
+    resumed decode gives the tile back."""
+    img = list(synthetic_corpus(4, size=256))[4]
+    packed = _pack(T.encode_batch(img[None], 0, device="cpu"))
+    words, lut, p0, zl8, nc = _walk_args(packed)
+    out = _resumes_pk1(words, lut, p0, zl8, nc)
+    assert _image_ovf(out, zl8) == [True]
+    seed = TW.resume_seed(*out[3:6], out[1], out[0])
+    assert int((seed < 0).sum()) > 100
+    bare = TS.walk_fix_plain(words, lut, p0, zl8, n_chunks=nc,
+                             seed=out[0].clone())
+    assert int(bare[6]) > 2 and not torch.equal(bare[0], out[0])
+    args = [torch.from_numpy(a) for a in packed]
+    got, ok = TS.decode_kernel_pk1(*args, h=256, w=256, c=4,
+                                   zlib_len_max=int(packed[3].max()),
+                                   seed=seed)
+    assert bool(ok.all()) and np.array_equal(got[0].numpy(), img)
 
 
 def _overflowing_rgba():
