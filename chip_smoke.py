@@ -37,10 +37,11 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      walk gate refusing as it does for a raster past 2^27 allocated
      slots, the same 32 images on the chunked decode (B10) and the
      overflow stream through chunked -> host;
-  walk_gate_edge: decodes the tallest 4K-wide raster the walk gate admits,
-     1 x 5824 x 7680 x 3 (134.2 M slots), on walk8, on PK=1
-     (FPNG_TPU_WALK8=0) and on the chunked decode (the gate patched to
-     refuse), each bit-exact against the input, zlib and the chunked
+  walk_gate_edge: decodes the tallest 4K-wide raster fpng_tpu's walk gate
+     admits, 1 x 5824 x 7680 x 3 (134.2 M slots; the port's own limit,
+     h * (bpl + 1) < 2^30, lies at 46601 rows of that width), on walk8, on
+     PK=1 (FPNG_TPU_WALK8=0) and on the chunked decode (the limit patched
+     to refuse), each bit-exact against the input, zlib and the chunked
      output, with B3, B4, B5, B6 and B8 timed on its streams, each path's
      peak device memory, and the walk8 and PK=1 decodes' peaks stage by
      stage (walk, epilogue, finalize, B5, B6);
@@ -50,14 +51,22 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      CPU run, each decodes bit-exact on the path the CPU tests pin (the
      tall shapes on PK=1);
   large_raster_2g: encodes one 1 x 6144 x 7680 x 3 raster (141.6 M bytes,
-     past 2^27) and decodes it on the chunked decode (B1 held against its
-     plain version on its stream), with the encode's and the decode's peak
-     device memory;
+     past fpng_tpu's 2^27 gate, within the port's limit) and decodes it on
+     the walk chain and on the chunked decode (the limit patched to refuse;
+     B1 held against its plain version on its stream), with the encode's
+     and each decode's peak device memory;
   memory_plan: decodes groups too large for one walk decode on the card,
      bit-exact: twelve edge rasters on PK=1 (FPNG_TPU_WALK8=0) in two or
      more sub-batches, and 2160 x 3840 x 4 1-pass frames (over 200 MB of
      zlib) through walk8 -> PK=1, each walk decode's modelled bytes
      (ops/walk8.decode_bytes) between 1 and 1.5 times its measured peak;
+  globe: one 1 x 10800 x 21600 x 3 whole-globe mosaic (699.85 M bytes;
+     the globe_rgb.decode cell's first content call, pngbench/content/
+     mosaic.py), encoded on the card, checked by zlib and pngbench's plain
+     reference, then decoded on walk8, on PK=1 (FPNG_TPU_WALK8=0, where
+     ops/walk8.decode_bytes says it fits) and on the chunked decode (the
+     limit patched), each bit-exact and timed with its peak, and the walk8
+     and PK=1 decodes stage by stage against decode_bytes;
   7. decodes corrupted streams against golden's statuses;
   probes: holds the probe kernels P1 (tools/prof_depparts, all seven
      modes) and P2 (tools/prof_int8mxu, int8 and bf16), each in every one
@@ -104,6 +113,11 @@ its plain version, and prints no ok line.  It calls only
 encode_bits_fused, encode_bits_plain, demote_mask, demote_mask_plain,
 build_desc and tokens, so a copy of this file at the root of any checkout
 since B7 was ported times that checkout's B1 and B7.
+
+    python3 chip_smoke.py --globe
+
+runs the globe phase alone (about a minute on one card) and prints no
+ok line.
 
     python3 chip_smoke.py --p1
 
@@ -295,16 +309,31 @@ def b1_inputs(torch, imgs):
     return desc, tbl, base, _num_words(_budget(H, W_, Cc))
 
 
-def b1_checked(torch, args, what):
+def b1_checked(torch, args, what, units=None):
     """B1 against encode_bits_plain on args: every word, total_bits and
-    last_tok.  The plain version's int64 temporaries go back to the card
-    (empty_cache), so that the phases after it allocate as they would
-    without the check."""
+    last_tok.  With `units`, the plain version runs on slices of that many
+    units, each from the bit where the slice before it ended, and ORs their
+    words (their bits are disjoint), so that the int64 temporaries of a
+    raster the globe's size fit the card.  The plain version's temporaries
+    go back to the card (empty_cache), so that the phases after it
+    allocate as they would without the check."""
     from fpng_tpu_torch.ops.encfuse import (encode_bits_fused,
                                             encode_bits_plain)
 
     got = encode_bits_fused(*args)
-    want = encode_bits_plain(*args)
+    if units is None:
+        want = encode_bits_plain(*args)
+    else:
+        desc, tbl, start, nw = args
+        words = torch.zeros_like(got[0])
+        last = torch.full_like(got[2], -1)
+        for a in range(0, desc.shape[1], units):
+            w_, start, lt = encode_bits_plain(desc[:, a:a + units], tbl,
+                                              start, nw)
+            words |= w_
+            last = torch.maximum(last, lt)
+            del w_
+        want = words, start, last
     for g, w_, name in zip(got, want, ("words", "total_bits", "last_tok")):
         check(torch.equal(g, w_), f"B1 {name} differ from plain ({what})")
     del want
@@ -655,11 +684,13 @@ def walk_err(torch, name, got, want, images=None):
 
 
 def walk_bound(words, lut32, out, Bd, nc):
-    """B3's and B8's bound: stream words and LUTs read, 12 record bytes a
-    recorded step and 16 bytes a lane written; ~30 ops a step."""
+    """B3's and B8's bound: stream words and LUTs read, a position (4 or 8
+    bytes, the walk's dtype) and two record words a recorded step and 12
+    bytes and an entry a lane written; ~30 ops a step."""
     steps_sum = int(out[1].sum())
-    return bound(4 * words.numel() + 4 * lut32.numel() + 12 * steps_sum +
-                 16 * Bd * nc, 30 * steps_sum)
+    ps = out[3].element_size()
+    return bound(4 * words.numel() + 4 * lut32.numel() +
+                 (ps + 8) * steps_sum + (ps + 12) * Bd * nc, 30 * steps_sum)
 
 
 def walk_counts(W, out):
@@ -1072,18 +1103,19 @@ def make_large_raster(H=6144, W=7680, noise=True):
     return img[None]
 
 
-EDGE = (5824, 7680)  # the tallest raster 7680 x 3 wide that walk8.fits admits
+EDGE = (5824, 7680)  # the tallest 7680 x 3 raster fpng_tpu's walk gate admits
 
 
 def phase_walk_gate_edge(torch, T, reset, read):
-    """The tallest 4K-wide raster the walk gate admits, 1 x 5824 x 7680 x 3
-    (134.2 M slots: past fpng_tpu's VMEM cap of 28.3 M slots, which the
-    port drops), make_large_raster's mosaic without the noise.  decode_batch
-    on walk8, on PK=1 (FPNG_TPU_WALK8=0) and on the chunked decode (the
-    gate patched to refuse), each bit-exact against the input and the zlib
-    check, the walks' output against the chunked one, each path through
-    its kernels with no host hand-off; then the walk8 and PK=1 decodes
-    stage by stage with each stage's peak device bytes
+    """The tallest 4K-wide raster fpng_tpu's walk gate admits, 1 x 5824 x
+    7680 x 3 (134.2 M slots: past fpng_tpu's VMEM cap of 28.3 M slots, which
+    the port drops), make_large_raster's mosaic without the noise; the
+    port's own limit (ops/walk8.fits) admits eight times as many rows.
+    decode_batch on walk8, on PK=1 (FPNG_TPU_WALK8=0) and on the chunked
+    decode (the limit patched to refuse), each bit-exact against the input
+    and the zlib check, the walks' output against the chunked one, each path
+    through its kernels with no host hand-off; then the walk8 and PK=1
+    decodes stage by stage with each stage's peak device bytes
     (tools/decode_memory.stage_peaks), and B3, B4, B5, B6 and B8 timed on
     the raster's streams (B5 and B6 held against their plain versions)."""
     from fpng_tpu_torch.models import decoder as TD
@@ -1098,9 +1130,12 @@ def phase_walk_gate_edge(torch, T, reset, read):
     img = make_large_raster(H, W, noise=False)
     Cc = img.shape[3]
     bpl = W * Cc
-    # the next raster up allocates 8 rows more
-    check(WK.fits(H, bpl) and not WK.fits(H + 8, bpl),
-          f"{H} x {bpl} is not the walk gate's edge")
+    # fpng_tpu's gate stops here (8 rows more allocate past 2^27 slots);
+    # the port's limit, h * (bpl + 1) < 2^30, at port_edge rows
+    port_edge = ((1 << 30) - 1) // (bpl + 1)
+    check(WK.fits(H, bpl) and WK.fits(H + 8, bpl) and
+          WK.fits(port_edge, bpl) and not WK.fits(port_edge + 1, bpl),
+          f"{H} x {bpl}: the walk path's limit is not h * (bpl + 1) < 2^30")
     reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1201,53 +1236,269 @@ def phase_walk_gate_edge(torch, T, reset, read):
     del g8, dargs, wargs
     torch.cuda.empty_cache()
     zlen = int.from_bytes(pngs[0][50:54], "big")
-    line("walk_gate_edge", batch=list(img.shape),
+    line("walk_gate_edge", batch=list(img.shape), port_edge_rows=port_edge,
          raster_bytes=H * (1 + bpl), slots=H * bpl, zlib_bytes=zlen,
          bits_per_raster_byte=8 * zlen / (H * (1 + bpl)), encode_s=enc_s,
          encode_peak_device_gb=enc_peak / 1e9, paths=res, kernels=k)
 
 
 def phase_large_raster_2g(torch, T, reset, read):
-    """One raster past 2^27 bytes, past the walk gate: encode_batch, then
-    decode_batch on the chunked decode (B10 with 64-bit record offsets), no
-    host hand-off, the pixels and the zlib check."""
+    """One raster past 2^27 bytes, past fpng_tpu's walk gate and within the
+    port's limit: encode_batch, then decode_batch on the walk chain (walk8,
+    or PK=1 after an overflow) and on the chunked decode (the limit patched
+    to refuse: B10 with 64-bit record offsets), no host hand-off, the
+    pixels and the zlib check."""
+    from fpng_tpu_torch.models import decoder as TD
     from fpng_tpu_torch.models.decoder import decode_batch
     from fpng_tpu_torch.ops.walk8 import fits
 
     img = make_large_raster()
     _, H, W_, Cc = img.shape
     raster_bytes = H * (1 + W_ * Cc)
-    check(raster_bytes >= 1 << 27 and not fits(H, W_ * Cc),
-          "the large raster is not past 2^27 bytes and the walk gate")
+    check(raster_bytes >= 1 << 27 and fits(H, W_ * Cc),
+          "the large raster is not past 2^27 bytes within the walk's limit")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset()
     pngs, enc_s = timed(lambda: T.encode_batch(img, device=DEV))
     enc_peak = torch.cuda.max_memory_allocated()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    (sts, outs), dec_s = timed(lambda: T.decode_batch(pngs, Cc, device=DEV))
-    dec_peak = torch.cuda.max_memory_allocated()
-    launches = read()
-    paths, hand = dict(decode_batch.paths), decode_batch.host_handoffs
+    enc_launches = read()
     check(not is_stored(pngs[0]), "the large raster was stored")
-    check(sts == [0] and np.array_equal(outs[0], img[0]),
-          f"large raster round trip: status {sts}")
-    check(paths == {"walk8": 0, "pk1": 0, "chunked": 1} and hand == 0,
-          f"large raster paths {paths}, {hand} host hand-offs")
-    check(launches["deposit_bits"] == 1 and
-          launches["crc32_words_masked_raw"] == 1 and
-          launches["encode_bits_fused"] == 1, f"large raster "
-          f"launches {launches}")
     check(zlib_check(pngs[0], img[0]), "large raster zlib check")
+    check(enc_launches["crc32_words_masked_raw"] == 1 and
+          enc_launches["encode_bits_fused"] == 1,
+          f"large raster encode launches {enc_launches}")
+    res = {}
+    walk_limit = TD.fits
+    try:
+        for path in ("walk", "chunked"):
+            if path == "chunked":
+                TD.fits = lambda h, bpl: False
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            (sts, outs), dec_s = timed(lambda: T.decode_batch(pngs, Cc,
+                                                              device=DEV))
+            launches = {k: v for k, v in read().items() if v}
+            paths, hand = dict(decode_batch.paths), decode_batch.host_handoffs
+            check(sts == [0] and np.array_equal(outs[0], img[0]),
+                  f"large raster on {path}: status {sts}")
+            check(hand == 0 and (paths["chunked"] == 1) == (path == "chunked")
+                  and sum(paths.values()) == 1,
+                  f"large raster on {path}: paths {paths}, {hand} host "
+                  "hand-offs")
+            check(path == "walk" or launches == {"deposit_bits": 1},
+                  f"large raster chunked launches {launches}")
+            res[path] = dict(decode_s=dec_s, paths=paths, launches=launches,
+                             peak_device_gb=torch.cuda.max_memory_allocated()
+                             / 1e9)
+    finally:
+        TD.fits = walk_limit
     b1_checked(torch, b1_inputs(torch, img), "large_raster_2g")
     zlen = int.from_bytes(pngs[0][50:54], "big")
     line("large_raster_2g", batch=list(img.shape), raster_bytes=raster_bytes,
          zlib_bytes=zlen, bits_per_raster_byte=8 * zlen / raster_bytes,
-         encode_s=enc_s, decode_s=dec_s, paths=paths, host_handoffs=hand,
-         encode_peak_device_gb=enc_peak / 1e9,
-         decode_peak_device_gb=dec_peak / 1e9, b1_bit_exact=True,
-         launches=launches)
+         encode_s=enc_s, encode_peak_device_gb=enc_peak / 1e9, decodes=res,
+         b1_bit_exact=True)
+
+
+GLOBE = (10800, 21600)  # the whole globe at 1 arc-minute (bmng21600)
+
+
+def globe_raster():
+    """(1, 10800, 21600, 3): the globe_rgb.decode cell's first content call
+    (pngbench/content/mosaic.py: the 40 synthetic tiles in the cell's fixed
+    arrangement)."""
+    from pngbench import tiles
+
+    bank = tiles.bank(3, 256, tiles.N_CLASSES)
+    return tiles.mosaic_batch(bank, 1, *GLOBE, np.random.default_rng(0x4B4B))
+
+
+def phase_globe(torch, T, reset, read):
+    """The whole-globe raster, 1 x 10800 x 21600 x 3 (699.85 M bytes, past
+    fpng_tpu's gate, a stream past 2^31 bits: 64-bit positions and bit
+    counts): encode_batch on the card, zlib and pngbench's plain reference
+    (pngref.read) on the file; decode_batch on walk8 (the plan's default),
+    on PK=1 (FPNG_TPU_WALK8=0) where decode_bytes says PK=1 fits the card's
+    free memory (else the plan must take the chunked decode, and does), and
+    on the chunked decode (the limit patched), each bit-exact, no host
+    hand-off, with its time and peak; then the walk8 and PK=1 decodes stage
+    by stage (tools/decode_memory.stage_peaks) against decode_bytes, the
+    chunked decode's peak against chunked_bytes, B3 and B4 at 64-bit
+    positions against their plain versions (B3 timed), and B1 against its
+    plain version in slices."""
+    from fpng_tpu_torch.models import decoder as TD
+    from fpng_tpu_torch.models.decoder import decode_batch
+    from fpng_tpu_torch.ops import specdec as SD
+    from fpng_tpu_torch.ops import specdec_tpu as PK
+    from fpng_tpu_torch.ops import walk8 as WK
+    from fpng_tpu_torch.tools import decode_memory as DM
+    from pngbench import pngref
+
+    t_all = time.perf_counter()
+    img, make_s = timed(globe_raster)
+    H, W = GLOBE
+    Cc = img.shape[3]
+    bpl = W * Cc
+    check(WK.fits(H, bpl) and H * (bpl + 1) == 699_850_800,
+          "the globe is not within the walk path's limit")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    pngs, enc_s = timed(lambda: T.encode_batch(img, device=DEV))
+    enc_peak = torch.cuda.max_memory_allocated()
+    enc_launches = {k: v for k, v in read().items() if v}
+    check(enc_launches == {"encode_bits_fused": 1,
+                           "crc32_words_masked_raw": 1},
+          f"globe encode launches {enc_launches}")
+    check(not is_stored(pngs[0]), "the globe was stored")
+    (ref_ok, ref_s) = timed(lambda: np.array_equal(pngref.read(pngs[0]),
+                                                   img[0]))
+    check(ref_ok and zlib_check(pngs[0], img[0]),
+          "the globe's file does not read back to its raster")
+    zlen = pngref.idat_bytes(pngs[0])
+    nc = WK.n_chunks(zlen)
+    pdt = WK.pos_dtype(nc)
+    models = {t: WK.decode_bytes(1, nc, st, H, bpl)
+              for t, st in (("walk8", 8 * WK.MAXIT), ("pk1", PK.ST8))}
+    torch.cuda.empty_cache()
+    budget = TD._free_bytes(torch.device(DEV))
+    pk1_fits = models["pk1"] <= budget - H * bpl
+    outs, res = {}, {}
+    walk_limit = TD.fits
+    try:
+        for path in ("walk8", "pk1", "chunked"):
+            if path == "pk1":
+                os.environ["FPNG_TPU_WALK8"] = "0"
+            if path == "chunked":
+                TD.fits = lambda h, bpl: False
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.memory_allocated()
+            reset()
+            try:
+                (sts, got), dec_s = timed(lambda: T.decode_batch(
+                    pngs, Cc, device=DEV))
+            except torch.OutOfMemoryError as e:  # reported, then failed
+                res[path] = dict(error=str(e).splitlines()[0])
+                continue
+            launches = {k: v for k, v in read().items() if v}
+            os.environ.pop("FPNG_TPU_WALK8", None)
+            took = "chunked" if path == "pk1" and not pk1_fits else path
+            want = {"walk8": 0, "pk1": 0, "chunked": 0, took: 1}
+            check(sts == [0] and np.array_equal(got[0], img[0]),
+                  f"globe on {path}: status {sts} or pixels differ")
+            check(decode_batch.paths == want and
+                  decode_batch.host_handoffs == 0,
+                  f"globe on {path}: paths {decode_batch.paths}, "
+                  f"{decode_batch.host_handoffs} host hand-offs")
+            check(path != "pk1" or pk1_fits or not launches.get("walk_fix"),
+                  "PK=1 launched where decode_bytes says it cannot fit")
+            outs[path] = got[0]
+            res[path] = dict(
+                decode_s=dec_s, took=took, launches=launches,
+                passes=(WK.walk_fix8.passes if path == "walk8" else
+                        PK.walk_fix.passes if took == "pk1" else None),
+                peak_device_gb=torch.cuda.max_memory_allocated() / 1e9,
+                start_device_gb=start / 1e9)
+            del got
+    finally:
+        TD.fits = walk_limit
+        os.environ.pop("FPNG_TPU_WALK8", None)
+    for path in ("walk8", "pk1"):
+        check(path not in outs or "chunked" not in outs or
+              np.array_equal(outs[path], outs["chunked"]),
+              f"globe: {path} output differs from the chunked one")
+    del outs
+
+    # each walk tier stage by stage, and the chunked decode, against the
+    # models
+    torch.cuda.empty_cache()
+    Bd, dargs, wargs, _ = pack_batch(torch, pngs)
+    nb = dargs[0].shape[1]
+    models["chunked"] = SD.chunked_bytes(1, nb, H, W, Cc)
+    stages = {}
+    for tier in ("walk8", "pk1"):
+        if tier == "pk1" and not pk1_fits:
+            continue
+        got, peaks = DM.stage_peaks(torch, dargs, nc, H, W, Cc, tier)
+        check(np.array_equal(got[0].cpu().numpy(), img[0]),
+              f"globe's {tier} stages: pixels differ")
+        del got
+        top = max(v for k, v in peaks.items() if k != "k8")
+        stages[tier] = dict(peaks, model_bytes=models[tier], peak_bytes=top,
+                            ratio=models[tier] / top)
+        check(models[tier] >= top, f"globe {tier}: model {models[tier]} B "
+              f"under the measured {top} B")
+        torch.cuda.empty_cache()
+    s_bits, lanes, steps = SD.plan_chunks(nb)
+    lut64 = dargs[1].to(torch.int64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    got, ok, ovf = SD.decode_kernel(dargs[0], lut64, dargs[2], dargs[3], h=H,
+                                    w=W, c=Cc, n_chunks=lanes,
+                                    chunk_bits=s_bits, max_steps=steps)
+    torch.cuda.synchronize()
+    top = torch.cuda.max_memory_allocated() - start
+    check(bool(ok.all()) and not bool(ovf.any()) and
+          np.array_equal(got[0].cpu().numpy(), img[0]),
+          "globe's chunked decode: pixels differ")
+    del got, ok, ovf, lut64
+    torch.cuda.empty_cache()
+    stages["chunked"] = dict(lanes=lanes, step_rows=steps,
+                             model_bytes=models["chunked"], peak_bytes=top,
+                             ratio=models["chunked"] / top)
+    check(models["chunked"] >= top, f"globe chunked: model "
+          f"{models['chunked']} B under the measured {top} B")
+
+    # B3 and B4 at 64-bit positions against their plain versions
+    words, lut32 = wargs[:2]  # pack_batch's int32 p0 and zl8 would wrap
+    w64 = (words, lut32, dargs[2].to(pdt), (dargs[3] * 8).to(pdt))
+    g3 = WK.walk_fix8(*w64, n_chunks=nc)
+    w3 = WK.walk_fix8_plain(*w64, n_chunks=nc)
+    check(g3[3].dtype == w3[3].dtype == torch.int64,
+          "the globe's walk records are not int64")
+    err3 = walk_err(torch, "B3 (globe, 64-bit positions)", g3, w3)
+    del w3
+    torch.cuda.empty_cache()
+    b3 = dict(max_abs_err=err3,
+              ms=cuda_ms(torch, lambda: WK.walk_fix8(*w64, n_chunks=nc), 3),
+              bound_ms=walk_bound(words, lut32, g3, Bd, nc)[0],
+              passes=int(g3[6]), max_lane_steps=int(g3[1].max()),
+              overflow=bool(g3[2].any()))
+    del g3, w64
+    torch.cuda.empty_cache()
+    records, e_fin, out0, steps, ovf, _ = WK.decode_walk8(*dargs,
+                                                          n_chunks=nc)
+    check(not bool(ovf.any()), "the globe overflows walk8")
+    k8 = WK.trim_steps(int(steps), records[0].shape[1])
+    kw = dict(k8=k8, h=H, bpl=bpl, c=Cc)
+    g4 = WK.finalize_records8(*records, e_fin, out0, **kw)
+    w4 = WK.finalize_records8_plain(*records, e_fin, out0, **kw)
+    check(g4[2].dtype == torch.int64, "the globe's check triple is not int64")
+    for a, b, what in zip(g4, w4, ("meta", "metb", "chk")):
+        check(torch.equal(a, b),
+              f"B4 {what} differs from plain (globe, 64-bit positions)")
+    del g4, w4
+    b4 = dict(k8=k8, ms=cuda_ms(torch, lambda: WK.finalize_records8(
+        *records, e_fin, out0, **kw), 3))
+    del records, e_fin, out0, dargs, wargs
+    torch.cuda.empty_cache()
+    b1_checked(torch, b1_inputs(torch, img), "globe", units=1 << 26)
+    torch.cuda.empty_cache()
+    line("globe", batch=list(img.shape), raster_bytes=H * (1 + bpl),
+         zlib_bytes=zlen, lanes=nc, positions=str(pdt),
+         bits_per_raster_byte=8 * zlen / (H * (1 + bpl)), make_s=make_s,
+         encode_s=enc_s, encode_peak_device_gb=enc_peak / 1e9,
+         pngref_s=ref_s, budget_bytes=budget, pk1_fits=pk1_fits,
+         models=models, paths=res, stages=stages, walk_fix8=b3,
+         finalize_records8=b4, b3_b4_b1_bit_exact=True,
+         seconds=time.perf_counter() - t_all)
+    check(not [p for p, r in res.items() if "error" in r],
+          f"globe: a decode ran out of card memory: {res}")
 
 
 def model_lines(case, calls, h, bpl):
@@ -1914,6 +2165,9 @@ def main():
     if sys.argv[1:] == ["--enc"]:
         line("enc", card=card, **enc_times(torch, bench))
         return
+    if sys.argv[1:] == ["--globe"]:
+        phase_globe(torch, T, reset, read)
+        return
 
     # --- 3. kernels against their plain versions ------------------------------
     imgs = bench.make_corpus("real3")
@@ -2164,6 +2418,9 @@ def main():
 
     # --- memory_plan: groups past one walk decode's card memory ------------
     phase_memory_plan(torch, T, reset, read)
+
+    # --- globe: one whole-globe raster on each tier -------------------------
+    phase_globe(torch, T, reset, read)
 
     # --- 7. corrupted streams -----------------------------------------------
     rng = np.random.default_rng(11)

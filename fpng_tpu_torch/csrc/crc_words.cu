@@ -118,7 +118,7 @@ __device__ __forceinline__ unsigned long long shift_count(long long k,
 // inverse ones and the 4-byte word table (ops/checksum.py:_bit_table_4).
 __global__ void __launch_bounds__(kThreads)
 idat_crc_kernel(const uint32_t* __restrict__ words,
-                const int* __restrict__ total_bits,
+                const long long* __restrict__ total_bits,
                 const long long* __restrict__ adler, int* __restrict__ meta,
                 const uint32_t* __restrict__ table,
                 const uint32_t* __restrict__ shifts, int NW,
@@ -127,7 +127,7 @@ idat_crc_kernel(const uint32_t* __restrict__ words,
   const int b = blockIdx.y, c = blockIdx.x;
   const int K = NW / kChunkWords;
   const long long N = 4ll * NW;
-  const long long tb = ((long long)total_bits[b] + 7) >> 3;
+  const long long tb = (total_bits[b] + 7) >> 3;
   const long long plen = meta[4 * b];
   const uint32_t r = chunk_register(words, table, NW, b, c, plen, tb, red);
   if (threadIdx.x >= 32) return;
@@ -171,9 +171,9 @@ idat_crc_kernel(const uint32_t* __restrict__ words,
 }  // namespace fpng
 
 // words (B, NW) with NW % 1024 == 0 and 4 * NW + 8 < 2^32, total_bits (B,)
-// int32, adler (B,) int64, meta (B, 4) int32 (plen, raw_ip, 0, 0), table
+// int64, adler (B,) int64, meta (B, 4) int32 (plen, raw_ip, 0, 0), table
 // (32, 1024), shifts (65, 32) -> crc (B,) int64 IDAT chunk CRCs.
-extern "C" int fpng_idat_crc(const int* words, const int* total_bits,
+extern "C" int fpng_idat_crc(const int* words, const long long* total_bits,
                              const long long* adler, int* meta,
                              const int* table, const int* shifts, int B,
                              int NW, long long* crc, void* stream) {

@@ -38,13 +38,10 @@
 //     kernel.  A tile may hold no bits at all (the desc-0 units after a
 //     match start); its range is empty, it stores nothing, and the state
 //     passes through it.
-// Bit offsets are int64 (a raster past 2^27 bytes has streams near 2^31
-// bits); the int32 outputs total_bits and last_tok saturate at 2^31 - 1, as
-// the plain version's do, and such a stream is past the stored-fallback
-// budget.  A unit holds at most 22 bits (code sizes up to 15, 7 extra
-// bits), so a tile's words fit in kEncTile + 2 words of shared memory.
-
-#include <climits>
+// Bit offsets are int64 (a raster past 2^27 bytes has streams past 2^31
+// bits), and so are the outputs total_bits and last_tok.  A unit holds at
+// most 22 bits (code sizes up to 15, 7 extra bits), so a tile's words fit
+// in kEncTile + 2 words of shared memory.
 
 #include "common.cuh"
 
@@ -182,8 +179,8 @@ struct Args {
   Slot* agg;           // a tile's own run (every tile writes one)
   Slot* incl;          // the image's run up to and including the tile
   uint32_t* words;
-  int* total_bits;
-  int* last_tok;
+  long long* total_bits;
+  long long* last_tok;
 };
 
 // A tile's desc and table in registers, every load issued before any is
@@ -442,9 +439,9 @@ __device__ void do_tile(const Args& g, int t, Shared& sm) {
     w[w0 + k] = v;
   }
   if (last && tid == 0) {
-    g.total_bits[b] = (int)min(e0, (long long)INT_MAX);
+    g.total_bits[b] = e0;
     const long long l = lt >= 0 ? s0 + lt : pre.lt;  // last token start
-    g.last_tok[b] = l < 0 ? -1 : (int)min(l, (long long)INT_MAX);
+    g.last_tok[b] = l < 0 ? -1 : l;
   }
 }
 
@@ -473,14 +470,15 @@ encfuse_kernel(Args g) {
 }  // namespace fpng
 
 // desc (B, N), tbl (B, 1024) packed code | size << 16, base_bits (B,)
-// -> words (B, num_words), every word written, total_bits (B,), last_tok
-// (B,).  scratch: the ticket (16 bytes), then an aggregate and an
+// -> words (B, num_words), every word written, total_bits (B,) and
+// last_tok (B,) int64.  scratch: the ticket (16 bytes), then an aggregate and an
 // inclusive slot a tile (ops/encfuse.py:_scratch_bytes), zeroed here.  One
 // memset of the scratch, one launch of a block a ticket.
 extern "C" int fpng_encfuse(const int* desc, const int* tbl,
                             const int* base_bits, int B, int N, int num_words,
-                            int* words, int* total_bits, int* last_tok,
-                            void* scratch, void* stream) {
+                            int* words, long long* total_bits,
+                            long long* last_tok, void* scratch,
+                            void* stream) {
   using namespace fpng;
   if (B <= 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;

@@ -48,6 +48,11 @@
 // checks reduce in each warp (vote, min) and then in the block, with one
 // set of atomics a block.  chk is set to (0, INF, INF) by a first launch
 // of the same C entry, so the wrapper uploads nothing.
+//
+// Bit positions (posr, e_fin and chk's eob_end and bad_end) are of the
+// type P, as in csrc/walk8.cu: int under 2^31 bits, long long past them,
+// with INF the type's largest value.  Output offsets stay int: the raster
+// is under 2^30 bytes (ops/walk8.fits).
 
 #include "common.cuh"
 
@@ -59,7 +64,17 @@ constexpr int kFinWarps = 8;                         // warps a block
 constexpr int kFinRows = 4;                          // rows a warp a tile
 constexpr int kFinTileRows = kFinWarps * kFinRows;   // rows a tile
 constexpr int kFinThreads = kFinLanes * kFinWarps;
-constexpr int kInf = 0x7FFFFFFF;
+// INF: the position type's largest value ("no position")
+template <typename P>
+struct Inf;
+template <>
+struct Inf<int> {
+  static constexpr int v = 0x7FFFFFFF;
+};
+template <>
+struct Inf<long long> {
+  static constexpr long long v = 0x7FFFFFFFFFFFFFFFLL;
+};
 
 // Division by a divisor d >= 1 fixed for the launch, for 0 <= n < 2^31:
 // n / d = (n * m) >> k with k = 31 + ceil(log2 d), m = ceil(2^k / d)
@@ -79,20 +94,34 @@ __device__ __forceinline__ int fdiv(int n, FastDiv f) {
   return (int)(((unsigned long long)(unsigned)n * f.m) >> f.k);
 }
 
-__global__ void chk_init_kernel(int* __restrict__ chk, int B) {
+template <typename P>
+__global__ void chk_init_kernel(P* __restrict__ chk, int B) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < 3 * B) chk[i] = i % 3 == 0 ? 0 : kInf;
+  if (i < 3 * B) chk[i] = i % 3 == 0 ? 0 : Inf<P>::v;
 }
 
+__device__ __forceinline__ int warp_min(int v) {
+  return __reduce_min_sync(0xffffffffu, v);
+}
+
+__device__ __forceinline__ long long warp_min(long long v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, d));
+  return v;
+}
+
+template <typename P>
 __global__ void __launch_bounds__(kFinThreads)
-finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
+finalize8_kernel(const P* __restrict__ posr, const int* __restrict__ raw0,
                  const int* __restrict__ raw1, int ST,
-                 const int* __restrict__ nst, const int* __restrict__ e_fin,
+                 const int* __restrict__ nst, const P* __restrict__ e_fin,
                  const int* __restrict__ out0, int NC, int k8, int h, int bpl,
                  int c, int* __restrict__ meta, int* __restrict__ metb,
-                 int* __restrict__ chk) {
+                 P* __restrict__ chk) {
+  constexpr P INF = Inf<P>::v;
   __shared__ int part[2][kFinWarps][kFinLanes];
-  __shared__ int red[3][kFinWarps];
+  __shared__ P red[3][kFinWarps];
   const int b = blockIdx.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lc = blockIdx.x * kFinLanes + lane;
@@ -101,7 +130,8 @@ finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
   const size_t o0 = (size_t)b * k8 * NC + lc;
   const int rs = bpl + 1, total = h * rs, n_slots = h * bpl;
   const FastDiv frs = make_fastdiv(rs), fc = make_fastdiv(c);
-  int e_l = 0, n_l = 0, carry = 0;
+  P e_l = 0;
+  int n_l = 0, carry = 0;
   if (active) {
     const size_t l = (size_t)b * NC + lc;
     e_l = e_fin[l];
@@ -109,12 +139,13 @@ finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
     carry = out0[l];
   }
   bool fail = false;
-  int eobm = kInf, badm = kInf;
+  P eobm = INF, badm = INF;
   for (int t0 = 0, buf = 0; t0 < k8; t0 += kFinTileRows, buf ^= 1) {
     const int j0 = t0 + warp * kFinRows;
     // rows at or past the lane's step count hold no record: read nothing
     // there (zeros make every flag below false)
-    int p[kFinRows], r0[kFinRows], r1[kFinRows];
+    P p[kFinRows];
+    int r0[kFinRows], r1[kFinRows];
 #pragma unroll
     for (int i = 0; i < kFinRows; ++i) {
       const bool live = active && j0 + i < k8 && j0 + i < n_l;
@@ -190,12 +221,12 @@ finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
       f |= lv && rowpos >= 1 && !xc && sym >= 256;
       f |= lv && sym == 256;
       const bool at_total = op == total;
-      if (at_total && sym == 256) eobm = min(eobm, p[i] + clen);
+      if (at_total && sym == 256) eobm = min(eobm, p[i] + (P)clen);
       if (at_total && sym != 256) badm = min(badm, p[i]);
       const int op2 = op + 1;
       const int fexp2 = op2 >= rs ? 2 : 0;
       f |= two && op2 < total && rowpos2 == 0 && s2 != fexp2;
-      if (two && op2 == total) badm = min(badm, p[i] + clen);
+      if (two && op2 == total) badm = min(badm, p[i] + (P)clen);
       fail |= f;
       outp += outlen[i];
       q = fdiv(outp, frs);
@@ -203,8 +234,8 @@ finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
     }
   }
   const bool any_fail = __any_sync(0xffffffffu, fail);
-  eobm = __reduce_min_sync(0xffffffffu, eobm);
-  badm = __reduce_min_sync(0xffffffffu, badm);
+  eobm = warp_min(eobm);
+  badm = warp_min(badm);
   if (lane == 0) {
     red[0][warp] = any_fail;
     red[1][warp] = eobm;
@@ -213,18 +244,34 @@ finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
   __syncthreads();
   if (threadIdx.x == 0) {
     bool f = false;
-    int e = kInf, m = kInf;
+    P e = INF, m = INF;
 #pragma unroll
     for (int w = 0; w < kFinWarps; ++w) {
       f |= red[0][w] != 0;
       e = min(e, red[1][w]);
       m = min(m, red[2][w]);
     }
-    int* ck = chk + (size_t)b * 3;
-    if (f) atomicOr(ck, 1);
-    if (e != kInf) atomicMin(ck + 1, e);
-    if (m != kInf) atomicMin(ck + 2, m);
+    P* ck = chk + (size_t)b * 3;
+    if (f) ck[0] = 1;  // every block that fails stores the same 1
+    if (e != INF) atomicMin(ck + 1, e);
+    if (m != INF) atomicMin(ck + 2, m);
   }
+}
+
+template <typename P>
+int launch_finalize(const void* posr, const int* raw0, const int* raw1,
+                    int ST, const int* nst, const void* e_fin,
+                    const int* out0, int B, int NC, int k8, int h, int bpl,
+                    int c, int* meta, int* metb, void* chk, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  chk_init_kernel<P><<<(3 * B + 255) / 256, 256, 0, s>>>((P*)chk, B);
+  if (NC > 0 && k8 > 0) {
+    const dim3 grid((NC + kFinLanes - 1) / kFinLanes, B);
+    finalize8_kernel<P><<<grid, kFinThreads, 0, s>>>(
+        (const P*)posr, raw0, raw1, ST, nst, (const P*)e_fin, out0, NC, k8,
+        h, bpl, c, meta, metb, (P*)chk);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -232,21 +279,20 @@ finalize8_kernel(const int* __restrict__ posr, const int* __restrict__ raw0,
 
 // posr/raw0/raw1 (B, ST, NC), nst/e_fin/out0 (B, NC) -> meta/metb
 // (B, k8, NC), chk (B, 3).  Two launches: chk set to (0, INF, INF), then
-// the finalize.
-extern "C" int fpng_finalize8(const int* posr, const int* raw0,
+// the finalize.  With wide, posr, e_fin and chk hold 64-bit positions,
+// else 32-bit ones.
+extern "C" int fpng_finalize8(const void* posr, const int* raw0,
                               const int* raw1, int ST, const int* nst,
-                              const int* e_fin, const int* out0, int B,
+                              const void* e_fin, const int* out0, int B,
                               int NC, int k8, int h, int bpl, int c,
-                              int* meta, int* metb, int* chk, void* stream) {
+                              int wide, int* meta, int* metb, void* chk,
+                              void* stream) {
   using namespace fpng;
   if (B <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  chk_init_kernel<<<(3 * B + 255) / 256, 256, 0, s>>>(chk, B);
-  if (NC > 0 && k8 > 0) {
-    const dim3 grid((NC + kFinLanes - 1) / kFinLanes, B);
-    finalize8_kernel<<<grid, kFinThreads, 0, s>>>(
-        posr, raw0, raw1, ST, nst, e_fin, out0, NC, k8, h, bpl, c, meta,
-        metb, chk);
-  }
-  return (int)cudaGetLastError();
+  return wide ? launch_finalize<long long>(posr, raw0, raw1, ST, nst, e_fin,
+                                           out0, B, NC, k8, h, bpl, c, meta,
+                                           metb, chk, stream)
+              : launch_finalize<int>(posr, raw0, raw1, ST, nst, e_fin, out0,
+                                     B, NC, k8, h, bpl, c, meta, metb, chk,
+                                     stream);
 }

@@ -46,6 +46,11 @@
 // its images into shared memory once (up to kMaxLuts; an image past those
 // slots is looked up through L1).
 //
+// Bit positions (p0, zl8, entries, exits, the position records) are of the
+// type P: int for streams under 2^31 bits, long long past them (the
+// wrapper picks, ops/walk8.pos_dtype), so an everyday stream's walk holds
+// and moves the bytes it always did.
+//
 // What bounds it on the H100: the serial chain of re-walks - up to
 // kMaxSteps dependent steps of window, then LUT lookup, per fixpoint pass
 // - against the record bytes (12 per step) of pass 0 and pass 1, where
@@ -78,18 +83,19 @@ constexpr int kMaxLuts = 12;       // 12 x 16 KB of shared memory
 // stream words staged per lane: a walk from its chunk boundary reads 17
 constexpr int kStage = 18;
 
+template <typename P>
 struct WalkArgs {
   const uint32_t* words;
   const int* lut;
-  const int* p0;
-  const int* zl8;
+  const P* p0;
+  const P* zl8;
   int nw, B, NC, ST, tpi, nt, nlut, seeded;
-  int* ent;  // entries; with seeded, the seeds on entry
-  int* ex0;  // exits of even passes
-  int* ex1;  // exits of odd passes
+  P* ent;  // entries; with seeded, the seeds on entry
+  P* ex0;  // exits of even passes
+  P* ex1;  // exits of odd passes
   int* nst;
   int* ovf;
-  int* posr;
+  P* posr;
   int* raw0;
   int* raw1;
   int* ctl;  // changed flags [0, 3), then passes
@@ -100,8 +106,9 @@ __host__ __device__ __forceinline__ int tile_begin(int nt, int blk, int G) {
   return (int)((long long)nt * blk / G);
 }
 
+template <typename P>
 __device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ s,
-                                         int nw, int wi) {
+                                         int nw, P wi) {
   return wi < nw ? __ldg(s + wi) : 0u;
 }
 
@@ -114,23 +121,24 @@ __device__ __forceinline__ uint32_t word(const uint32_t* __restrict__ s,
 // the staged words reads device memory again.  The tail is a loop of its
 // own: a record branch inside the recording loop put a divergence point
 // on every step of the serial chain and slowed the walk by a sixth.
-__device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
-                    int b, int c, int pos) {
+template <typename P>
+__device__ P walk(const WalkArgs<P>& a, const int* lut, uint32_t* stage,
+                  int b, int c, P pos) {
   const size_t lane = (size_t)b * a.NC + c;
   const size_t row0 = (size_t)b * a.ST * a.NC + c;
-  const int bit0 = c * kChunkBits;
-  const int z = __ldg(a.zl8 + b);
-  const int bound = min(bit0 + kChunkBits, z);
+  const P bit0 = (P)c * kChunkBits;
+  const P z = __ldg(a.zl8 + b);
+  const P bound = min(bit0 + (P)kChunkBits, z);
   const uint32_t* s = a.words + (size_t)b * a.nw;
   bool act = bit0 < z && pos < bound;
-  const int base = pos >> 5;
+  const P base = pos >> 5;
   if (act) {
 #pragma unroll
     for (int i = 0; i < kStage; ++i)
       stage[i * kWalkThreads] = word(s, a.nw, base + i);
   }
-  auto window = [&](int p) {
-    const int sh = p & 31, k = (p >> 5) - base;
+  auto window = [&](P p) {
+    const int sh = (int)(p & 31), k = (int)((p >> 5) - base);
     uint32_t w0, w1;
     if (k + 1 < kStage) {
       w0 = stage[k * kWalkThreads];
@@ -183,13 +191,15 @@ __device__ int walk(const WalkArgs& a, const int* lut, uint32_t* stage,
 // Whether the last walk of lane (b, c) passed through pos within its first
 // kMemb steps: then the walk from pos is that walk's tail, with its exit.
 // The rows are read eight at a time, their loads issued together.
-__device__ bool recorded(const WalkArgs& a, int b, int c, int pos) {
+template <typename P>
+__device__ bool recorded(const WalkArgs<P>& a, int b, int c, P pos) {
   const size_t row0 = (size_t)b * a.ST * a.NC + c;
   const int top = min(kMemb, a.ST) - 1;
   const int m = min(top + 1, a.nst[(size_t)b * a.NC + c]);
   bool hit = false;
   for (int j0 = 0; j0 < m; j0 += 8) {
-    int p[8], r0[8], r1[8];
+    P p[8];
+    int r0[8], r1[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
       const size_t r = row0 + (size_t)min(j0 + u, top) * a.NC;
@@ -205,7 +215,8 @@ __device__ bool recorded(const WalkArgs& a, int b, int c, int pos) {
   return hit;
 }
 
-__global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
+template <typename P>
+__global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs<P> a) {
   // shared memory: the staged stream words, then the LUTs
   extern __shared__ int smem[];
   uint32_t* stage = (uint32_t*)smem + threadIdx.x;
@@ -232,9 +243,9 @@ __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
     const int b = t / a.tpi, c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
     if (c >= a.NC) continue;
     const size_t lane = (size_t)b * a.NC + c;
-    const int s = a.seeded ? a.ent[lane]
-                           : c == 0 ? __ldg(a.p0 + b) : c * kChunkBits;
-    const int pos = s < 0 ? ~s : s;
+    const P s = a.seeded ? a.ent[lane]
+                         : c == 0 ? __ldg(a.p0 + b) : (P)c * kChunkBits;
+    const P pos = s < 0 ? ~s : s;
     a.ex0[lane] = walk(a, lut_of(b), stage, b, c, pos);
     a.ent[lane] =
         s < 0 ? pos + ((a.raw0[(size_t)b * a.ST * a.NC + c] >> 19) & 15) : s;
@@ -243,8 +254,8 @@ __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
 
   int passes = 1;
   for (int k = 1; k <= a.NC + 1; ++k) {
-    const int* ex_in = (k & 1) ? a.ex0 : a.ex1;
-    int* ex_out = (k & 1) ? a.ex1 : a.ex0;
+    const P* ex_in = (k & 1) ? a.ex0 : a.ex1;
+    P* ex_out = (k & 1) ? a.ex1 : a.ex0;
     // the flag of pass k + 1 was last read before pass k - 1's barrier
     if (blockIdx.x == 0 && threadIdx.x == 0) changed[(k + 1) % 3] = 0;
     int moved = 0;
@@ -253,9 +264,9 @@ __global__ void __launch_bounds__(kWalkThreads) walk8_kernel(WalkArgs a) {
       const int c = (t - b * a.tpi) * kWalkThreads + threadIdx.x;
       if (c >= a.NC) continue;
       const size_t lane = (size_t)b * a.NC + c;
-      int out = __ldcg(ex_in + lane);
-      const int pos = c == 0 ? __ldg(a.p0 + b) : __ldcg(ex_in + lane - 1);
-      if (c * kChunkBits < __ldg(a.zl8 + b) && pos != a.ent[lane]) {
+      P out = __ldcg(ex_in + lane);
+      const P pos = c == 0 ? __ldg(a.p0 + b) : __ldcg(ex_in + lane - 1);
+      if ((P)c * kChunkBits < __ldg(a.zl8 + b) && pos != a.ent[lane]) {
         moved = 1;
         a.ent[lane] = pos;
         if (!recorded(a, b, c, pos))
@@ -281,25 +292,13 @@ int max_span(int nt, int tpi, int G) {
   return span;
 }
 
-}  // namespace
-}  // namespace fpng
-
-// The whole walk over B images x NC lanes with ST step rows a lane, in one
-// cooperative launch.  With seeded, ent (B, NC) holds the seeds on entry;
-// without, each lane starts at its chunk boundary (lane 0 at p0).  ex0,
-// ex1 (B, NC) are scratch; ctl (4 ints, zeroed by the caller) gets the
-// pass count at ctl[3].  info (host, 3 ints) gets the grid, the blocks
-// per SM and the shared-memory LUT slots.  The grid is the co-resident
-// limit for the launch's shared memory, capped by the tiles; a launch the
-// card refuses returns its error.
-extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
-                          const int* p0, const int* zl8, int B, int NC,
-                          int ST, int seeded, int* ent, int* ex0,
-                          int* ex1, int* nst, int* ovf, int* posr, int* raw0,
-                          int* raw1, int* ctl, int* info, void* stream) {
-  using namespace fpng;
-  if (B <= 0 || NC <= 0) return 0;
-  if (ST <= 0 || ST > kMaxSteps) return (int)cudaErrorInvalidValue;
+// The launch of walk8_kernel<P> (fpng_walk8's contract).
+template <typename P>
+int launch_walk(const int* words, int nw, const int* lut, const void* p0,
+                const void* zl8, int B, int NC, int ST, int seeded,
+                void* ent, void* ex0, void* ex1, int* nst, int* ovf,
+                void* posr, int* raw0, int* raw1, int* ctl, int* info,
+                void* stream) {
   int dev = 0, sms = 0, occ = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -314,11 +313,11 @@ extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
   size_t smem = 0;
   for (;;) {
     smem = ((size_t)nlut * kLutWords + kStage * kWalkThreads) * sizeof(int);
-    e = cudaFuncSetAttribute(walk8_kernel,
+    e = cudaFuncSetAttribute(walk8_kernel<P>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, walk8_kernel,
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, walk8_kernel<P>,
                                                         kWalkThreads, smem);
     if (e != cudaSuccess) return (int)e;
     if (occ <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
@@ -330,12 +329,44 @@ extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
   info[0] = G;
   info[1] = occ;
   info[2] = nlut;
-  WalkArgs a{(const uint32_t*)words, lut, p0, zl8, nw, B, NC, ST, tpi, nt,
-             nlut, seeded, ent, ex0, ex1, nst, ovf, posr, raw0, raw1, ctl};
+  WalkArgs<P> a{(const uint32_t*)words, lut, (const P*)p0, (const P*)zl8,
+                nw, B, NC, ST, tpi, nt, nlut, seeded, (P*)ent, (P*)ex0,
+                (P*)ex1, nst, ovf, (P*)posr, raw0, raw1, ctl};
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)walk8_kernel, dim3(G),
+  e = cudaLaunchCooperativeKernel((const void*)walk8_kernel<P>, dim3(G),
                                   dim3(kWalkThreads), args, smem,
                                   (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace fpng
+
+// The whole walk over B images x NC lanes with ST step rows a lane, in one
+// cooperative launch.  With seeded, ent (B, NC) holds the seeds on entry;
+// without, each lane starts at its chunk boundary (lane 0 at p0).  ex0,
+// ex1 (B, NC) are scratch; ctl (4 ints, zeroed by the caller) gets the
+// pass count at ctl[3].  info (host, 3 ints) gets the grid, the blocks
+// per SM and the shared-memory LUT slots.  The grid is the co-resident
+// limit for the launch's shared memory, capped by the tiles; a launch the
+// card refuses returns its error.  With wide, p0, zl8, ent, ex0, ex1 and
+// posr hold 64-bit positions, else 32-bit ones (a stream under 2^31 bits).
+extern "C" int fpng_walk8(const int* words, int nw, const int* lut,
+                          const void* p0, const void* zl8, int B, int NC,
+                          int ST, int seeded, int wide, void* ent, void* ex0,
+                          void* ex1, int* nst, int* ovf, void* posr,
+                          int* raw0, int* raw1, int* ctl, int* info,
+                          void* stream) {
+  using namespace fpng;
+  if (B <= 0 || NC <= 0) return 0;
+  if (ST <= 0 || ST > kMaxSteps) return (int)cudaErrorInvalidValue;
+  if (!wide && (long long)(NC + 1) * kChunkBits >= 1LL << 31)
+    return (int)cudaErrorInvalidValue;
+  return wide ? launch_walk<long long>(words, nw, lut, p0, zl8, B, NC, ST,
+                                       seeded, ent, ex0, ex1, nst, ovf, posr,
+                                       raw0, raw1, ctl, info, stream)
+              : launch_walk<int>(words, nw, lut, p0, zl8, B, NC, ST, seeded,
+                                 ent, ex0, ex1, nst, ovf, posr, raw0, raw1,
+                                 ctl, info, stream);
 }

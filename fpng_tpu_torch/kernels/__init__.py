@@ -37,14 +37,14 @@ _SIGNATURES = {
     "fpng_idat_crc": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     # vals, offsets, shift, B, N, num_words (int64), words, stream
     "fpng_deposit": [_P, _P, _I, _I, _I, ctypes.c_longlong, _P, _P],
-    # words, nw, lut, p0, zl8, B, NC, ST, seeded, ent (the seeds when
+    # words, nw, lut, p0, zl8, B, NC, ST, seeded, wide, ent (the seeds when
     # seeded), ex0, ex1, nst, ovf, posr, raw0, raw1, ctl, info (host), stream
-    "fpng_walk8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
-                   _P, _P, _P, _P, _P, _P],
-    # posr, raw0, raw1, ST, nst, e_fin, out0, B, NC, k8, h, bpl, c, meta,
-    # metb, chk, stream
+    "fpng_walk8": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                   _P, _P, _P, _P, _P, _P, _P],
+    # posr, raw0, raw1, ST, nst, e_fin, out0, B, NC, k8, h, bpl, c, wide,
+    # meta, metb, chk, stream
     "fpng_finalize8": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _P, _P, _P, _P],
+                       _I, _P, _P, _P, _P],
     # meta, metb, B, S, NC, n_slots, raster, stream
     "fpng_scatter_packed16": [_P, _P, _I, _I, _I, _I, _P, _P],
     # raster, B, h, w, c, rows, strip, bands, scratch, out, stream

@@ -3,9 +3,9 @@
 The host does the O(1)-per-image work (container chunk walk, dynamic
 header parse and 12-bit LUT build, fpng.cpp:1954-2105); the device does
 everything O(pixels).  dispatch_kernel is fpng_tpu's chain without its
-`except` degrade:
+`except` degrade, with the tiers chosen before launch by the card's memory:
 
-  within the walk gate (ops/walk8.fits):
+  within the port's raster limit (ops/walk8.fits: h * (bpl + 1) < 2^30):
     walk8 (ops/walk8.py, kernels B3-B6)          the default
     -> PK=1 (ops/specdec_tpu.py, B8, B9, B5, B6) when a walk8 lane
                                                  overflows its step
@@ -14,14 +14,22 @@ everything O(pixels).  dispatch_kernel is fpng_tpu's chain without its
                                                  or straight away (from the
                                                  chunk boundaries) with
                                                  FPNG_TPU_WALK8=0
-  past the gate:
+  past the limit, or where the image's walk cannot fit the card:
     chunked decode (ops/specdec.py, B10)
     -> host decoder (golden.decode_zlib)         per image, when the chunked
                                                  walk's step bound overflows
 
-Within the gate a group too large for the card's free memory is split
-into sub-batches by a memory plan (dispatch_kernel), each decoded on the
-chain above: that plan replaces what fpng_tpu's `except` gives its users.
+The memory plan (dispatch_kernel, plan_tiers) stands in for fpng_tpu's
+`except`: from the models of each tier's bytes (ops/walk8.decode_bytes,
+ops/specdec.chunked_bytes) and the card's free memory it splits a walked
+group into sub-batches whose PK=1 decode fits; where not even one image's
+PK=1 decode fits, into sub-batches whose walk8 decode fits, a walk8
+overflow then taking the chunked decode where that fits and raising
+MemoryError where it does not; where no walk fits, the group takes the
+chunked decode, and where that does not fit either the call raises
+MemoryError before any launch.  fpng_tpu's own walk gate (2^27 allocated
+slots, its TPU's VMEM) is not the port's: a whole-globe raster of
+699.85 M bytes decodes on walk8.
 
 Any constraint violation flips the image's ok flag and the API reports
 FPNG_DECODE_NOT_FPNG, as the reference does.  Stored-block files decode on
@@ -38,14 +46,21 @@ is enabled or while `decode_batch.spans` is a dict; untraced, a span reads
 one flag.  A traced call opens a profiler range and a registry entry for
 each stage - `decoder.parse`, `.host_stored`, `.pack`, `.h2d`, `.device`,
 `.d2h`, `.finish` - and inside `.device` for the memory plan
-(`decoder.plan`: _free_bytes, plan_sub_batches) and each tier of the walk
-(`decoder.walk8`, B3's attempt; `decoder.pk1`, the re-walk through B8,
-B9, the epilogue, B5 and B6, whose card time the registry keeps as
-`decoder.pk1_card_s`).  The seven stages' host seconds also go into
-`decode_batch.spans` when it is a dict.  No span synchronises the card:
-a stage that queues card work is charged the host's time to queue it.
-decode_batch_stream pipelines batches: batch k+1 is launched before batch
-k's readback is waited for.
+(`decoder.plan`: _free_bytes, plan_tiers, and its decision in the
+counters below) and each tier of the walk (`decoder.walk8`, B3's attempt
+and, where it fits, B4-B6, whose card time the registry keeps as
+`decoder.walk8_card_s`; `decoder.pk1`, the re-walk through B8, B9, the
+epilogue, B5 and B6, as `decoder.pk1_card_s`).  The plan counts the images
+it plans (`decoder.images`), those of each walked tier
+(`decoder.tier.walk8_pk1`, `.walk8_chunked`, `.walk8`) and those that
+take the chunked decode (`decoder.chunked_images`), by reason:
+`decoder.chunked_past_limit` (past ops/walk8.fits) or
+`decoder.chunked_no_room` (the image's walk cannot fit the card: no walk
+planned, or a walk8 overflow where PK=1 cannot fit).  The seven stages'
+host seconds also go into `decode_batch.spans` when it is a dict.  No span
+synchronises the card: a stage that queues card work is charged the
+host's time to queue it.  decode_batch_stream pipelines batches: batch
+k+1 is launched before batch k's readback is waited for.
 """
 
 from __future__ import annotations
@@ -57,9 +72,9 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from ..ops.specdec import decode_kernel, pack_lut, plan_chunks
+from ..ops.specdec import chunked_bytes, decode_kernel, pack_lut, plan_chunks
 from ..ops.specdec_tpu import ST8, decode_kernel_pk1
-from ..ops.walk8 import decode_bytes, decode_kernel8, fits, n_chunks
+from ..ops.walk8 import MAXIT, decode_bytes, decode_kernel8, fits, n_chunks
 from ..utils import trace
 from .transfer import finish_readback, start_readback, to_device
 
@@ -189,7 +204,7 @@ _MARGIN = 2 << 30
 
 
 def _free_bytes(device):
-    """The walk decode's budget on `device`: the card's free memory plus
+    """The decode's budget on `device`: the card's free memory plus
     what torch's caching allocator holds unused, less _MARGIN; None off
     the card (no split).  Read at launch, so whatever is already on the
     card (a batch in flight, a mesh shard's neighbours) is counted."""
@@ -214,74 +229,160 @@ def plan_sub_batches(B: int, nbytes, budget, out_bytes: int):
     return [(i, min(i + b, B)) for i in range(0, B, b)]
 
 
-def _walk_chain(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int):
-    """One sub-batch through walk8, then PK=1 on an overflow, resumed from
-    walk8's converged entries (or PK=1 straight away with
-    FPNG_TPU_WALK8=0): (imgs, ok, path).  Each tier is a span; the PK=1
-    tier's card time is clocked (trace.card_clock)."""
+def plan_tiers(B: int, nb: int, h: int, w: int, c: int, zmax: int,
+               budget):
+    """The tiers of a group of B images of h x w x c, their streams packed
+    nb bytes wide and zmax bytes long at most, and its sub-batches, before
+    anything launches: (tier, parts).  Within the walk path's raster limit
+    (ops/walk8.fits) the first of these whose model fits the budget, whole
+    or one image a sub-batch beside the output (plan_sub_batches):
+      "walk8_pk1"      the walk chain, by its PK=1 decode (decode_bytes at
+                       ST8 rows, the larger tier);
+      "walk8_chunked"  walk8 enabled, by its walk8 decode and the chunked
+                       decode (chunked_bytes) that takes a sub-batch whose
+                       walk8 overflows;
+      "walk8"          walk8 enabled, by its walk8 decode alone: a walk8
+                       overflow raises MemoryError.
+    Otherwise ("chunked_no_room", [(0, B)]), and past the limit
+    ("chunked_past_limit", [(0, B)]), where the chunked decode of the
+    group fits; MemoryError where nothing does.  budget None (the CPU)
+    plans a single walk8_pk1 batch, or the chunked decode past the
+    limit."""
+    bpl = w * c
+
+    def chunked(b):
+        return chunked_bytes(b, nb, h, w, c)
+
+    walks = fits(h, bpl)
+    if walks:
+        nc = n_chunks(zmax)
+
+        def walk(ST):
+            return lambda b: decode_bytes(b, nc, ST, h, bpl)
+
+        w8, on = walk(8 * MAXIT), _use_walk8()
+        for tier, nbytes, allowed in (
+                ("walk8_pk1", walk(ST8), True),
+                ("walk8_chunked", lambda b: max(w8(b), chunked(b)), on),
+                ("walk8", w8, on)):
+            if allowed and (budget is None or nbytes(B) <= budget or
+                            nbytes(1) <= budget - B * h * bpl):
+                return tier, plan_sub_batches(B, nbytes, budget, h * bpl)
+    if budget is None or chunked(B) <= budget:
+        return "chunked_no_room" if walks else "chunked_past_limit", [(0, B)]
+    raise MemoryError(
+        f"decode of {B} images of {h} x {w} x {c}: no tier fits the card's "
+        f"{budget} free bytes (the chunked decode needs {chunked(B)})")
+
+
+def _chunked(sj, lj, pj, zj, *, h: int, w: int, c: int):
+    """The chunked decode (B10) of a group or sub-batch: (imgs, ok,
+    overflow, "chunked")."""
+    s_bits, lanes, max_steps = plan_chunks(sj.shape[1])
+    return (*decode_kernel(sj, lj, pj, zj, h=h, w=w, c=c, n_chunks=lanes,
+                           chunk_bits=s_bits, max_steps=max_steps),
+            "chunked")
+
+
+def _walk_chain(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int,
+                tier: str = "walk8_pk1"):
+    """One sub-batch through walk8, then on an overflow PK=1 resumed from
+    walk8's converged entries (tier walk8_pk1; or PK=1 straight away with
+    FPNG_TPU_WALK8=0), the chunked decode (tier walk8_chunked, where PK=1
+    cannot fit the card) or MemoryError (tier walk8, where neither fits):
+    (imgs, ok, overflow, path).  Each tier is a span; the walk8 and PK=1
+    tiers' card time is clocked (trace.card_clock)."""
     decode_batch.sub_batches += 1
     seed = None
     if _use_walk8():
-        with trace.span("decoder.walk8"):
+        with trace.span("decoder.walk8"), \
+                trace.card_clock("decoder.walk8_card_s", sj.device):
             imgs, ok, seed = decode_kernel8(sj, lj, pj, zj, h=h, w=w, c=c,
                                             zlib_len_max=zmax)
         if seed is None:
-            return imgs, ok, "walk8"
+            return imgs, ok, torch.zeros_like(ok), "walk8"
         decode_batch.walk8_overflows += 1
+        if tier != "walk8_pk1":
+            del seed  # frees the entries before the chunked decode allocates
+            if tier == "walk8":
+                raise MemoryError("a walk8 lane overflowed its step rows, "
+                                  "and neither PK=1 nor the chunked decode "
+                                  "fits the card")
+            n = sj.shape[0]
+            trace.count("decoder.chunked_images", n)
+            trace.count("decoder.chunked_no_room", n)
+            return _chunked(sj, lj, pj, zj, h=h, w=w, c=c)
     with trace.span("decoder.pk1"), \
             trace.card_clock("decoder.pk1_card_s", sj.device):
         imgs, ok = decode_kernel_pk1(sj, lj, pj, zj, h=h, w=w, c=c,
                                      zlib_len_max=zmax, seed=seed)
-    return imgs, ok, "pk1"
+    return imgs, ok, torch.zeros_like(ok), "pk1"
+
+
+_PATHS = ("walk8", "pk1", "chunked")
 
 
 def dispatch_kernel(sj, lj, pj, zj, *, h: int, w: int, c: int, zmax: int,
                     mem_budget=None):
-    """The decode dispatch - walk8 -> PK=1 within the walk gate, the
-    chunked decode past it - over already-packed device inputs
-    (pack_streams), zmax the longest zlib_len.
+    """The decode dispatch over already-packed device inputs
+    (pack_streams), zmax the longest zlib_len: the walk chain within the
+    port's raster limit (ops/walk8.fits), the chunked decode past it.
 
-    Within the gate the memory plan stands in for fpng_tpu's `except`
-    around its walks: before anything launches, the batch is split into
-    contiguous sub-batches (plan_sub_batches) whose PK=1 decode
-    (ops/walk8.decode_bytes at ST8 rows, the larger tier, since a walk8
-    overflow decodes the same sub-batch again on PK=1) fits the budget:
+    The memory plan stands in for fpng_tpu's `except` around its walks:
+    before anything launches, plan_tiers chooses the tiers from the models
+    (ops/walk8.decode_bytes, ops/specdec.chunked_bytes) and the budget -
     mem_budget bytes, or by default the card's free memory at launch
-    (_free_bytes; no split on the CPU).  A sub-batch of one image launches
-    whatever its model says (decode_bytes says why it fits the card).  Each
-    sub-batch runs the chain; their outputs are joined in image order.
-    Nothing catches a failed launch.  The chunked decode is not split, as
-    fpng_tpu has no degrade around it.
+    (_free_bytes; none on the CPU) - and splits the group into contiguous
+    sub-batches:
+      walk8 -> PK=1      where one image's PK=1 decode fits: sub-batches
+                         whose PK=1 decode (the larger tier, since a walk8
+                         overflow decodes the same sub-batch again on PK=1)
+                         fits beside the output;
+      walk8 -> chunked   where only walk8 and the chunked decode fit: a
+                         walk8 overflow takes the chunked decode for its
+                         sub-batch;
+      walk8              where only walk8 fits: an overflow raises
+                         MemoryError;
+      chunked            past the limit, or where no walk fits (or PK=1
+                         does not and FPNG_TPU_WALK8=0 asks for it
+                         straight away) and the chunked decode does.
+    Where nothing fits it raises MemoryError before any launch.  So no
+    decode is launched where its model says it cannot fit.  Each sub-batch
+    runs its chain; outputs are joined in image order.  Nothing catches a
+    failed launch.  The chunked decode is not split, as fpng_tpu has no
+    degrade around it.  The plan's decision is counted inside the
+    `decoder.plan` span (module docstring).
 
     Returns (imgs, ok, overflow, path) where path names the furthest
     decode that ran ("walk8", "pk1" or "chunked") and overflow flags the
     images the chunked walk could not finish (the caller decodes them on
     the host).
     """
-    if not fits(h, w * c):
-        decode_batch.sub_batches += 1
-        s_bits, lanes, max_steps = plan_chunks(sj.shape[1])
-        imgs, ok, overflow = decode_kernel(
-            sj, lj, pj, zj, h=h, w=w, c=c, n_chunks=lanes,
-            chunk_bits=s_bits, max_steps=max_steps)
-        return imgs, ok, overflow, "chunked"
-    B, nc, bpl = sj.shape[0], n_chunks(zmax), w * c
+    B = sj.shape[0]
     with trace.span("decoder.plan"):
+        trace.count("decoder.images", B)
         budget = _free_bytes(sj.device) if mem_budget is None else mem_budget
-        parts = plan_sub_batches(
-            B, lambda b: decode_bytes(b, nc, ST8, h, bpl), budget, h * bpl)
-    kw = dict(h=h, w=w, c=c, zmax=zmax)
+        tier, parts = plan_tiers(B, sj.shape[1], h, w, c, zmax, budget)
+        if tier.startswith("chunked"):
+            trace.count("decoder.chunked_images", B)
+            trace.count("decoder." + tier, B)
+        else:
+            trace.count("decoder.tier." + tier, B)
+    if tier.startswith("chunked"):
+        decode_batch.sub_batches += 1
+        return _chunked(sj, lj, pj, zj, h=h, w=w, c=c)
+    kw = dict(h=h, w=w, c=c, zmax=zmax, tier=tier)
     if len(parts) == 1:
-        imgs, ok, path = _walk_chain(sj, lj, pj, zj, **kw)
-        return imgs, ok, torch.zeros_like(ok), path
+        return _walk_chain(sj, lj, pj, zj, **kw)
     imgs = torch.empty((B, h, w, c), dtype=torch.uint8, device=sj.device)
     ok = torch.empty(B, dtype=torch.bool, device=sj.device)
+    overflow = torch.zeros_like(ok)
     path = "walk8"
     for a, b in parts:
-        imgs[a:b], ok[a:b], sub = _walk_chain(sj[a:b], lj[a:b], pj[a:b],
-                                              zj[a:b], **kw)
-        path = "pk1" if sub == "pk1" else path
-    return imgs, ok, torch.zeros_like(ok), path
+        imgs[a:b], ok[a:b], overflow[a:b], sub = _walk_chain(
+            sj[a:b], lj[a:b], pj[a:b], zj[a:b], **kw)
+        path = max(path, sub, key=_PATHS.index)
+    return imgs, ok, overflow, path
 
 
 def _decode_launch(pngs: list[bytes], desired_channels: int, device,

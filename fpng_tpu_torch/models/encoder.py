@@ -152,8 +152,8 @@ def encode_kernel(imgs, codes, sizes, base_bits, pend_val, pend_n, *,
                   num_words: int):
     """Device encode of a (B, H, W, C) uint8 batch.
 
-    Returns (words (B, num_words) int32, total_bits (B,) int32,
-    last_token_start (B,) int32, adler (B,) int64, hist): hist is the
+    Returns (words (B, num_words) int32, total_bits (B,) int64,
+    last_token_start (B,) int64, adler (B,) int64, hist): hist is the
     (B, 288) int64 token histogram of the tokens this encode emits (the
     prologue's own literals and matches, plus the filter bytes) when
     want_hist, else a (B, 1) zero tensor.

@@ -87,12 +87,12 @@ def idat_crc_words(words, total_bits, adler, plens, raw_ip) -> torch.Tensor:
     meta[:, 0] = torch.as_tensor(plens).cpu().numpy()
     meta[:, 1] = torch.as_tensor(raw_ip).cpu().numpy()
     meta = to_device(meta.astype(np.uint32).view(np.int32), words.device)
-    total_bits = total_bits.to(torch.int32).contiguous()
+    total_bits = total_bits.to(torch.int64).contiguous()
     adler = adler.to(torch.int64).contiguous()
     table = _word_table_on(words.device)
     shifts = _shift_tables_on(words.device)
-    K.require_cuda("idat_crc_words", words, total_bits, meta, table, shifts)
-    K.require_cuda("idat_crc_words", adler, dtype=torch.int64)
+    K.require_cuda("idat_crc_words", words, meta, table, shifts)
+    K.require_cuda("idat_crc_words", total_bits, adler, dtype=torch.int64)
     crc = torch.empty((B,), dtype=torch.int64, device=words.device)
     K.check(K.lib().fpng_idat_crc(
         words.data_ptr(), total_bits.data_ptr(), adler.data_ptr(),

@@ -35,7 +35,6 @@ DESC_TOK_START = 1 << 26
 _TILE = 4096  # units a tile of the kernel (kEncTile in csrc/encfuse.cu)
 _SLOT_BYTES = 24  # a tile's published run (Slot in csrc/encfuse.cu)
 _MAX_BASE_BITS = 1 << 16  # base_bits bound: a header prefix is < 640 bytes
-INT32_MAX = (1 << 31) - 1
 
 
 def pack_table(codes: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
@@ -72,7 +71,7 @@ def encode_bits_plain(desc: torch.Tensor, tbl: torch.Tensor,
                       base_bits: torch.Tensor, num_words: int):
     """Plain version of kernel B1: materialize_units + exclusive_offsets +
     scatter_bits.  Returns (words (B, num_words) int32, total_bits (B,)
-    int32, last_tok (B,) int32), both saturated at 2^31 - 1."""
+    int64, last_tok (B,) int64)."""
     B = desc.shape[0]
     t = tbl.reshape(B, -1).to(torch.int64)
     vals, nbits, ts = materialize_units(desc, t & 0xFFFF, t >> 16)
@@ -80,8 +79,7 @@ def encode_bits_plain(desc: torch.Tensor, tbl: torch.Tensor,
     words = scatter_bits(vals, nbits, offsets, num_words)
     total = offsets[:, -1] + nbits[:, -1]
     last_tok = torch.where(ts, offsets, -1).max(dim=1).values
-    return (words, total.clamp(max=INT32_MAX).to(torch.int32),
-            last_tok.clamp(max=INT32_MAX).to(torch.int32))
+    return words, total, last_tok
 
 
 def _scratch_bytes(B: int, N: int) -> int:
@@ -98,14 +96,12 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
 
     tbl: (B, 8, 128) int32 from pack_table; base_bits: (B,) int32 start
     offsets (serialized prefix bits, below 2^16).  Returns (words
-    (B, num_words) int32 uint32 patterns, total_bits (B,) int32, last_tok
-    (B,) int32, both saturated at 2^31 - 1; the bit offsets themselves are
-    int64).  Every word equals encode_bits_plain's; num_words is below
-    2^26, so a stream whose total saturates is past every word and past
-    the stored-fallback budget.  A CPU tensor takes the plain version;
-    a CUDA tensor launches the kernel (one launch, counted in
-    `encode_bits_fused.launches`, after a memset of its scratch) or
-    raises.
+    (B, num_words) int32 uint32 patterns, total_bits (B,) int64, last_tok
+    (B,) int64, as the bit offsets themselves).  Every word equals
+    encode_bits_plain's; num_words is below 2^30 (B2's limit).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (one
+    launch, counted in `encode_bits_fused.launches`, after a memset of its
+    scratch) or raises.
     """
     if desc.device.type == "cpu":
         return encode_bits_plain(desc, tbl, base_bits, num_words)
@@ -114,13 +110,14 @@ def encode_bits_fused(desc: torch.Tensor, tbl: torch.Tensor,
     K.require_cuda("encode_bits_fused", desc, tbl, base_bits)
     if base_bits.shape != (B,):
         raise ValueError("encode_bits_fused: base_bits must be (B,)")
-    if N >= 1 << 31 or num_words >= 1 << 26:
-        raise ValueError("encode_bits_fused: words past 2^31 bits")
+    if N >= 1 << 31 or num_words >= 1 << 30:
+        raise ValueError("encode_bits_fused: units or words past 2^31, "
+                         "2^30")
     dev = desc.device
     # the kernel writes every word, total_bits and last_tok
     words = torch.empty((B, num_words), dtype=torch.int32, device=dev)
-    total = torch.empty(B, dtype=torch.int32, device=dev)
-    last_tok = torch.empty(B, dtype=torch.int32, device=dev)
+    total = torch.empty(B, dtype=torch.int64, device=dev)
+    last_tok = torch.empty_like(total)
     scratch = torch.empty(_scratch_bytes(B, N), dtype=torch.uint8,
                           device=dev)
     K.check(K.lib().fpng_encfuse(

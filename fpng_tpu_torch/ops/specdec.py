@@ -31,10 +31,11 @@ import torch
 from .. import constants as C
 
 from .bitpack import deposit_bits
+from .walk8 import _block
 
 CHUNK_BITS = 2048  # S: lockstep-walk chunk size in bits (large streams)
 _SYNC_EVERY = 16   # walk steps between tests for live lanes
-_NO_POS = 0x7FFFFFFF
+_NO_POS = (1 << 63) - 1  # "no position": past every bit of any stream
 
 
 def plan_chunks(nb: int):
@@ -151,6 +152,39 @@ def record_offsets(rec_out: torch.Tensor, total: int):
     B = rec_out.shape[0]
     ro = rec_out.transpose(1, 2).reshape(B, -1).contiguous()
     return ro, 4, -(-(16 * (total + 1)) // 32) + 1
+
+
+def chunked_bytes(B: int, nb: int, h: int, w: int, c: int) -> int:
+    """Device bytes decode_kernel holds at its peak on a card for B images
+    of h x w x c whose streams are packed nb bytes wide (plan_chunks(nb)
+    lanes and step rows).  Its packed inputs, already on the card, are not
+    counted.  Every buffer the function names lives to its return, so the
+    stages add up:
+      window     _window24's padded int64 copy and three int64 temporaries
+      deposit    the int64 windows, the two (B, ST, NC) int32 record arrays,
+                 their lane-major copies (values and offsets), the unit
+                 sizes' two int32 temporaries and B10's words
+      expansion  the windows, the four record arrays and B10's words, the
+                 literal flags (a bool a raster byte), three int64 pixel
+                 arrays (payload, last literal, fill) and three int64
+                 sample arrays (deltas, their column sums, the low bytes)
+    plus 48 int64 lane arrays (the walks' state and temporaries) and
+    B-sized tensors, each counted at the allocator's rounding
+    (ops/walk8._block).  At the 10800 x 21600 x 3 whole globe (a 512 MiB
+    stream bucket: 2.1 M lanes of 768 rows) the expansion holds 54.6 GB,
+    three times the globe's walk8 decode."""
+    _, NC, ST = plan_chunks(nb)
+    total = h * (1 + w * c)
+    px = B * h * w
+    w24 = _block(8 * B * nb)
+    rec = _block(4 * B * ST * NC)
+    dep = _block(4 * B * (-(-(16 * (total + 1)) // 32) + 1))
+    window = _block(8 * B * (nb + 2)) + 3 * w24
+    deposit = w24 + 6 * rec + dep
+    expansion = w24 + 4 * rec + dep + _block(B * total) + \
+        3 * _block(8 * px) + 3 * _block(8 * c * px)
+    return max(window, deposit, expansion) + 48 * _block(8 * B * NC) + \
+        16 * _block(8 * B)
 
 
 def decode_kernel(stream, lutp, p0, zlib_len, *, h: int, w: int, c: int,

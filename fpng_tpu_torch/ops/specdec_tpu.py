@@ -19,9 +19,14 @@ TPU layout.  So here:
                        trimmed k8 <= ST8 rows
   B5, B6               as walk8 (ops/walk8.finish_decode)
 
-Each wrapper keeps its own launch counter, apart from walk8's, so a run
-shows which walk it took.  A CPU tensor takes the plain versions (walk8's
-at ST8 rows); a CUDA tensor launches the kernels or raises.
+Bit positions are int32 or, for a stream of 2^31 bits or more, int64
+(ops/walk8.pos_dtype), in both walks.  At 536 rows a lane a PK=1 decode
+holds about 5.6 times walk8's records, so where one image's PK=1 decode
+does not fit the card the plan never launches it
+(models/decoder.plan_tiers).  Each wrapper keeps its own launch counter,
+apart from walk8's, so a run shows which walk it took.  A CPU tensor takes
+the plain versions (walk8's at ST8 rows); a CUDA tensor launches the
+kernels or raises.
 """
 
 from __future__ import annotations

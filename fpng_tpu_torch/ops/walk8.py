@@ -39,10 +39,14 @@ finalize_cuda and finish_decode.  The whole walk is one launch; the host
 reads nothing back until the epilogue's single readback.
 
 Records are step-major, (B, ST, NC): lane c's step j sits at [b, j, c], so
-the lanes of a warp read and write neighbouring words.  The Pallas
-kernels' PK=8 sublane packing, select-chain word windows, lpi/gchunk
-geometry, narrow 23-bit records and 256-slot row padding are TPU layout
-and are not carried over.
+the lanes of a warp read and write neighbouring words.  Bit positions (p0,
+the stream end, entries, exits, the position records and the finalize's
+eob_end and bad_end) are int32 for streams under 2^31 bits and int64 past
+them (pos_dtype): a stream of 268 MB or more, as a whole-globe raster's,
+walks with 64-bit positions, and every other walk holds what it held.  The
+Pallas kernels' PK=8 sublane packing, select-chain word windows,
+lpi/gchunk geometry, narrow 23-bit records and 256-slot row padding are
+TPU layout and are not carried over.
 
 Every kernel wrapper takes its plain torch version for a CPU tensor and
 launches its CUDA kernel (csrc/walk8.cu, csrc/finalize8.cu) for a CUDA
@@ -66,30 +70,33 @@ MAXIT = 12        # step slots per lane: ST = 8 * maxit (as fpng_tpu's)
 _MEMB = 32        # fixpoint membership window, in steps (as fpng_tpu's)
 CAP = S + 24      # steps a walk takes at most: one a bit, plus the token
                   # tail (the PK=1 walk's rows, ops/specdec_tpu.ST8)
-INF = 0x7FFFFFFF
+INF = 0x7FFFFFFF  # "no position" of an int32 check triple
+# bit positions are int32 below this many bits a stream, else int64
+POS32_BITS = 1 << 31
 # record rows the epilogue reads at a time: two slabs on walk8, whose
 # temporaries (337 B a lane) stay under one 96-row int32 array (384)
 _EPI_ROWS = 48
 
 
 def fits(h: int, bpl: int) -> bool:
-    """The walk path's raster gate: fpng_tpu's walk gate counted on the
-    rows that fpng_tpu allocates (ROADMAP A12), H8 * bpl_pad < 2^27 with
-    H8 = ceil(h/8)*8 and rows of 256 slots or more padded to a multiple of
-    256.  It leaves out fpng_tpu's VMEM cap of 28.3M slots, a TPU limit.
-    The port's own raster is unpadded, and its kernels need only
-    h * (bpl + 1) < 2^30 (B4's int32 output offsets).  The card has held
-    the raster at this gate's edge, 5824 x 7680 x 3 (134.2M slots), on
-    walk8 and on PK=1, bit-exact against the chunked decode
-    (chip_smoke.py's walk_gate_edge); past the gate the port has walked
-    nothing, and the chunked decode takes those rasters up to 2^31 bytes.
-    The decode dispatch and the walk finalizes (B4, B9) all take it from
-    here.  The gate bounds one image; a walked group too large for the
-    card's free memory is split into sub-batches by the memory plan
-    (models/decoder.dispatch_kernel, decode_bytes), and one image at this
-    gate's edge always fits the card (decode_bytes says why)."""
-    bpl_pad = bpl if bpl < 256 else -(-bpl // 256) * 256
-    return -(-h // 8) * 8 * bpl_pad < 1 << 27
+    """The walk path's raster limit, the port's own: h * (bpl + 1) < 2^30,
+    the int32 output offsets of B4 (out0 and the running offset, clamped at
+    2^30 by walk_offsets).  fpng_tpu's walk gate (H8 * bpl_pad < 2^27, from
+    the TPU's VMEM budget) is not the port's: a raster up to 1 073 M bytes,
+    as the 10800 x 21600 x 3 whole-globe raster (699.85 M bytes), decodes
+    on walk8.  The decode dispatch and the walk finalizes (B4, B9) take the
+    limit from here; past it the chunked decode takes a raster up to 2^31
+    bytes.  The limit bounds one image: whether its walk fits the card is
+    the memory plan's question (models/decoder.dispatch_kernel,
+    decode_bytes), asked before anything launches."""
+    return h * (bpl + 1) < 1 << 30
+
+
+def pos_dtype(n_chunks: int) -> torch.dtype:
+    """The dtype of a walk's bit positions over n_chunks lanes: int32
+    while every position, up to the last lane's end and its token tail,
+    stays under POS32_BITS (2^31 bits: streams under 268 MB), else int64."""
+    return torch.int32 if (n_chunks + 1) * S < POS32_BITS else torch.int64
 
 
 def n_chunks(zlib_len_max: int) -> int:
@@ -211,9 +218,9 @@ def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
         ex = torch.where(wm, ex2, ex)
         nst = torch.where(wm, nst2, nst)
         ovf = torch.where(wm, ovf2, ovf)
-    i32 = torch.int32
-    e_fin = ent.to(i32) if seed is None else seed.copy_(ent)
-    return (e_fin, nst.to(i32), ovf, posr.to(i32), raw0.to(i32),
+    i32, pdt = torch.int32, pos_dtype(NC)
+    e_fin = ent.to(pdt) if seed is None else seed.copy_(ent)
+    return (e_fin, nst.to(i32), ovf, posr.to(pdt), raw0.to(i32),
             raw1.to(i32), torch.tensor(passes, dtype=i32, device=dev))
 
 
@@ -234,7 +241,8 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
     recorded and overflow flag (B, NC); step-major records (B, ST, NC)
     int32 - rows at or past a lane's nst are unspecified; and the number
     of walk passes as a 0-dim int32 tensor on the input's device (pass 0
-    plus every fixpoint pass, the last of which finds no change).
+    plus every fixpoint pass, the last of which finds no change).  The bit
+    positions - p0, zl8, e_fin and posr - are of pos_dtype(n_chunks).
 
     A lane that overflows its rows walks on unrecorded (up to CAP steps),
     so its exit is exact: every image runs to the fixpoint of the PK=1
@@ -261,37 +269,40 @@ walk_fix8.passes = 0
 def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
               seed=None):
     """Run csrc/walk8.cu's walk and fixpoint with ST <= CAP step rows a
-    lane, in one cooperative launch (walk_fix8's contract).  seed (B, NC)
-    int32 contiguous, when given, is resume_seed's and the walk's entry
+    lane, in one cooperative launch (walk_fix8's contract), at the kernel's
+    32-bit or 64-bit positions (pos_dtype).  seed (B, NC) of positions,
+    contiguous, when given, is resume_seed's and the walk's entry
     buffer: the walk reads its seeds from it, writes its entries into it
     and returns it as e_fin, so a resumed walk holds no more than a fresh
     one.  The launch's grid, blocks per SM and shared-memory LUT slots are
     left in `walk_cuda.launch`."""
-    tensors = (words, lut, p0, zl8) + (() if seed is None else (seed,))
-    K.require_cuda(name, *tensors)
-    B, nw = words.shape
     NC = n_chunks
+    pdt = pos_dtype(NC)
+    K.require_cuda(name, words, lut)
+    K.require_cuda(name, p0, zl8, *(() if seed is None else (seed,)),
+                   dtype=pdt)
+    B, nw = words.shape
     if lut.shape != (B, 4096) or p0.shape != (B,) or zl8.shape != (B,):
         raise ValueError(f"{name}: lut (B, 4096), p0 and zl8 (B,)")
-    if seed is not None and (seed.shape != (B, NC) or
-                             seed.dtype != torch.int32 or
-                             not seed.is_contiguous()):
-        raise ValueError(f"{name}: seed (B, n_chunks) int32, contiguous")
+    if seed is not None and seed.shape != (B, NC):
+        raise ValueError(f"{name}: seed (B, n_chunks)")
     if not 0 < ST <= CAP:
         raise ValueError(f"{name}: ST outside (0, {CAP}]")
-    if (NC + 1) * S >= 1 << 31:
-        raise ValueError(f"{name}: stream too long for int32 positions")
-    dev = words.device
-    posr, raw0, raw1 = (torch.empty((B, ST, NC), dtype=torch.int32,
-                                    device=dev) for _ in range(3))
-    nst, ovf, ex0, ex1 = (torch.empty((B, NC), dtype=torch.int32,
-                                      device=dev) for _ in range(4))
-    ent = torch.empty_like(nst) if seed is None else seed
+    dev, i32 = words.device, torch.int32
+    posr = torch.empty((B, ST, NC), dtype=pdt, device=dev)
+    raw0, raw1 = (torch.empty((B, ST, NC), dtype=i32, device=dev)
+                  for _ in range(2))
+    nst, ovf = (torch.empty((B, NC), dtype=i32, device=dev)
+                for _ in range(2))
+    ex0, ex1 = (torch.empty((B, NC), dtype=pdt, device=dev)
+                for _ in range(2))
+    ent = torch.empty_like(ex0) if seed is None else seed
     ctl = torch.zeros(4, dtype=torch.int32, device=dev)  # flags, passes
     info = (ctypes.c_int * 3)()
     K.check(K.lib().fpng_walk8(
         words.data_ptr(), nw, lut.data_ptr(), p0.data_ptr(), zl8.data_ptr(),
-        B, NC, ST, int(seed is not None), ent.data_ptr(), ex0.data_ptr(),
+        B, NC, ST, int(seed is not None), int(pdt == torch.int64),
+        ent.data_ptr(), ex0.data_ptr(),
         ex1.data_ptr(), nst.data_ptr(), ovf.data_ptr(), posr.data_ptr(),
         raw0.data_ptr(), raw1.data_ptr(), ctl.data_ptr(),
         ctypes.addressof(info), K.stream_ptr(dev)), "fpng_walk8")
@@ -303,13 +314,13 @@ walk_cuda.launch = None
 
 
 def resume_seed(posr, raw0, raw1, nst, e_fin):
-    """The seed of a walk that resumes from a converged one (B, NC) int32:
-    each lane's converged entry, or ~p where that entry is the second
-    literal of a literal pair its last walk recorded at p.  A walk from
-    such an entry would pair the literals after it otherwise and could exit
-    a literal away from the converged exit; from p it retraces the last
-    walk.  The pair lies within the membership window (_MEMB rows), read
-    _MEMB // 4 rows at a time."""
+    """The seed of a walk that resumes from a converged one (B, NC), of
+    e_fin's dtype: each lane's converged entry, or ~p where that entry is
+    the second literal of a literal pair its last walk recorded at p.  A
+    walk from such an entry would pair the literals after it otherwise and
+    could exit a literal away from the converged exit; from p it retraces
+    the last walk.  The pair lies within the membership window (_MEMB
+    rows), read _MEMB // 4 rows at a time."""
     seed = e_fin.clone()
     e3, n3 = e_fin[:, None], nst[:, None]
     M = min(_MEMB, posr.shape[1])
@@ -320,7 +331,7 @@ def resume_seed(posr, raw0, raw1, nst, e_fin):
         pair = (raw1[:, j:j + R] != 0) & (rows < n3) & \
             (((raw0[:, j:j + R] >> 19) & 15) + p == e3)
         torch.where(pair.any(dim=1),
-                    torch.sum(p * pair, dim=1, dtype=torch.int32)
+                    torch.sum(p * pair, dim=1, dtype=p.dtype)
                     .bitwise_not_(), seed, out=seed)
     return seed
 
@@ -350,12 +361,12 @@ def walk_offsets(walk, stream, lut, p0, zlib_len, *, n_chunks: int):
     """decode_walk8's contract with the walk `walk` (walk_fix8, or the
     PK=1 walk of ops/specdec_tpu.py): the walk, then the epilogue in torch
     ops on either device (_lane_sums; only the prefix sum across lanes is
-    int64)."""
+    int64), the bit positions of pos_dtype(n_chunks)."""
     zl8 = zlib_len.to(torch.int64) * 8
-    i32 = torch.int32
+    i32, pdt = torch.int32, pos_dtype(n_chunks)
     e_fin, nst, ovf_l, posr, raw0, raw1, passes = walk(
-        stream_words(stream), lut.to(i32).contiguous(), p0.to(i32),
-        zl8.to(i32), n_chunks=n_chunks)
+        stream_words(stream), lut.to(i32).contiguous(), p0.to(pdt),
+        zl8.to(pdt), n_chunks=n_chunks)
     live = _lane_geometry(zl8, n_chunks)[1]
     outb, last = _lane_sums(posr, raw0, raw1, nst, e_fin)
     outb *= live
@@ -373,18 +384,18 @@ def _lane_sums(posr, raw0, raw1, nst, e_fin):
     """Each lane's output bytes past its converged entry and its last kept
     step, (B, NC) int32 each (at most 536 rows of outlen <= 511: under
     2^19), from the (B, ST, NC) records read _EPI_ROWS rows at a time.
-    Its temporaries - one int32 and three bool slabs of _EPI_ROWS rows and
-    one int32 lane array - are allocated once, written in place and freed
-    on return (decode_bytes counts them)."""
+    Its temporaries - one slab of _EPI_ROWS rows and one lane array of the
+    positions' dtype, and three bool slabs - are allocated once, written in
+    place and freed on return (decode_bytes counts them)."""
     B, ST, NC = posr.shape
     dev, i32 = posr.device, torch.int32
     e3, n3 = e_fin[:, None], nst[:, None]
     step1 = torch.arange(1, ST + 1, dtype=i32, device=dev)[:, None]
     outb = torch.zeros((B, NC), dtype=i32, device=dev)
     last = torch.zeros_like(outb)
-    part = torch.empty_like(outb)
+    part = torch.empty((B, NC), dtype=posr.dtype, device=dev)
     R = min(_EPI_ROWS, ST)
-    x = torch.empty((B, R, NC), dtype=i32, device=dev)
+    x = torch.empty((B, R, NC), dtype=posr.dtype, device=dev)
     keep, ge, t = (torch.empty((B, R, NC), dtype=torch.bool, device=dev)
                    for _ in range(3))
     for j in range(0, ST, R):
@@ -410,11 +421,11 @@ def _lane_sums(posr, raw0, raw1, nst, e_fin):
         torch.bitwise_right_shift(r0, 10, out=xs)
         xs &= 511
         xs *= ks
-        outb += torch.sum(xs, dim=1, dtype=i32, out=part)
+        outb += torch.sum(xs, dim=1, dtype=part.dtype, out=part)
         gs.logical_not_()
         gs &= ks
         xs.copy_(gs)
-        outb -= torch.sum(xs, dim=1, dtype=i32, out=part)
+        outb -= torch.sum(xs, dim=1, dtype=part.dtype, out=part)
         torch.mul(ks, step, out=xs)
         torch.maximum(last, torch.amax(xs, dim=1, out=part), out=last)
     return outb, last
@@ -437,6 +448,7 @@ def finalize_records8_plain(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
     B, _, NC = posr.shape
     dev = posr.device
     i64 = torch.int64
+    inf = torch.iinfo(posr.dtype).max
     rs = bpl + 1
     total = h * rs
     n_slots = h * bpl
@@ -445,7 +457,7 @@ def finalize_records8_plain(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
     meta = torch.empty((B, k8, NC), dtype=torch.int32, device=dev)
     metb = torch.empty_like(meta)
     fail = torch.zeros((B, NC), dtype=torch.bool, device=dev)
-    eobm = torch.full((B, NC), INF, dtype=i64, device=dev)
+    eobm = torch.full((B, NC), inf, dtype=i64, device=dev)
     badm = eobm.clone()
     for j in range(k8):
         p = posr[:, j].to(i64)
@@ -488,33 +500,34 @@ def finalize_records8_plain(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
         f |= lv & (sym == 256)
         at_total = rec & (outp == total)
         eobm = torch.minimum(eobm, torch.where(at_total & (sym == 256),
-                                               p + clen, INF))
+                                               p + clen, inf))
         badm = torch.minimum(badm, torch.where(at_total & (sym != 256),
-                                               p, INF))
+                                               p, inf))
         outp2 = outp + 1
         fexp2 = torch.where(outp2 >= rs, 2, 0)
         f |= two & (outp2 < total) & (rowpos2 == 0) & (s2 != fexp2)
         badm = torch.minimum(badm, torch.where(two & (outp2 == total),
-                                               p + clen, INF))
+                                               p + clen, inf))
         fail |= f
     chk = torch.stack([fail.any(dim=1).to(i64), eobm.amin(dim=1),
                        badm.amin(dim=1)], dim=1)
-    return meta, metb, chk.to(torch.int32)
+    return meta, metb, chk.to(posr.dtype)
 
 
 def finalize_records8(posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
                       h: int, bpl: int, c: int):
     """Kernel B4: walk records -> deposit records + constraint checks.
 
-    posr/raw0/raw1 (B, ST, NC) int32 walk records (rows >= k8 unread);
-    nst, e_fin, out0 (B, NC) int32.  Returns (meta, metb, chk): meta
-    (B, k8, NC) int32 data-raster slots (row-major h x bpl, filter bytes
-    excluded; 0 <= slot <= h*bpl), metb (B, k8, NC) int32 values -
-    (0x100 | v1) | (0x100 | v2) << 16, v2 in the slot after v1, 0 = no
-    literal - and chk (B, 3) int32 (fail, eob_end, bad_end) with INF for
-    "none".  Literals whose output offset lies at or past the raster end
-    (post-EOB garbage) deposit nothing, so every deposited slot is
-    distinct.
+    posr/raw0/raw1 (B, ST, NC) walk records (rows >= k8 unread); nst,
+    e_fin, out0 (B, NC); posr and e_fin of the walk's position dtype, the
+    rest int32.  Returns (meta, metb, chk): meta (B, k8, NC) int32
+    data-raster slots (row-major h x bpl, filter bytes excluded; 0 <= slot
+    <= h*bpl), metb (B, k8, NC) int32 values - (0x100 | v1) | (0x100 | v2)
+    << 16, v2 in the slot after v1, 0 = no literal - and chk (B, 3)
+    (fail, eob_end, bad_end) of posr's dtype, with that dtype's largest
+    value (INF for int32) for "none".  Literals whose output offset lies at
+    or past the raster end (post-EOB garbage) deposit nothing, so every
+    deposited slot is distinct.
 
     A CUDA tensor launches csrc/finalize8.cu (a block a tile of lanes x
     rows; the running offset a scan down each lane).
@@ -536,20 +549,22 @@ def finalize_cuda(name: str, posr, raw0, raw1, nst, e_fin, out0, *, k8: int,
     """One call of csrc/finalize8.cu (finalize_records8's contract): it
     sets chk to (0, INF, INF) on the card, then runs the finalize; nothing
     is copied from the host."""
-    K.require_cuda(name, posr, raw0, raw1, nst, e_fin, out0)
+    pdt = posr.dtype
+    K.require_cuda(name, raw0, raw1, nst, out0)
+    K.require_cuda(name, posr, e_fin, dtype=pdt)
     B, ST, NC = posr.shape
     if not 0 < k8 <= ST or not fits(h, bpl):
         raise ValueError(f"{name}: bad k8, or a raster past the walk "
-                         "path's gate")
+                         "path's limit")
     dev = posr.device
     meta = torch.empty((B, k8, NC), dtype=torch.int32, device=dev)
     metb = torch.empty_like(meta)
-    chk = torch.empty((B, 3), dtype=torch.int32, device=dev)  # set by it
+    chk = torch.empty((B, 3), dtype=pdt, device=dev)  # set by it
     K.check(K.lib().fpng_finalize8(
         posr.data_ptr(), raw0.data_ptr(), raw1.data_ptr(), ST,
         nst.data_ptr(), e_fin.data_ptr(), out0.data_ptr(), B, NC, k8, h, bpl,
-        c, meta.data_ptr(), metb.data_ptr(), chk.data_ptr(),
-        K.stream_ptr(dev)), "fpng_finalize8")
+        c, int(pdt == torch.int64), meta.data_ptr(), metb.data_ptr(),
+        chk.data_ptr(), K.stream_ptr(dev)), "fpng_finalize8")
     return meta, metb, chk
 
 
@@ -570,13 +585,15 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
     freed on return.  One device->host readback: steps, passes (added to
     walk_fix8.passes and, in a traced call, to the counters
     decoder.walk8_passes and decoder.walk8_walks, utils/trace.py) and the
-    overflow flags.
+    overflow flags; it is the host wait of the walk8 card clock.
     """
     records, e_fin, out0, steps, ovf, passes = decode_walk8(
         stream, lut, p0, zlib_len, n_chunks=n_chunks(zlib_len_max),
         maxit=maxit)
     diag = torch.cat([steps.view(1).to(torch.int32), passes.view(1),
-                      ovf.to(torch.int32)]).cpu()
+                      ovf.to(torch.int32)])
+    with trace.host_wait():
+        diag = diag.cpu()
     walk_fix8.passes += int(diag[1])
     trace.count("decoder.walk8_walks")
     trace.count("decoder.walk8_passes", int(diag[1]))
@@ -602,12 +619,14 @@ def decode_bytes(B: int, NC: int, ST: int, h: int, bpl: int, *,
     inputs, already on the card, are not counted.  With finish=False, only
     the walk and the epilogue (a walk8 attempt that overflows).  A PK=1
     decode that resumes from walk8 holds no more: its seed is its walk's
-    entry buffer (walk_cuda).
+    entry buffer (walk_cuda).  Positions take 4 or 8 bytes (pos_dtype(NC)).
 
     The stages, each the buffers it holds at once (walk_cuda,
     walk_offsets, finalize_cuda, scatter_packed16, expand):
-      walk      three (B, ST, NC) int32 record arrays, five int32 and one
-                bool (B, NC) lane arrays, the LUTs as int32
+      walk      the (B, ST, NC) position records and two int32 record
+                arrays, three position and two int32 (B, NC) lane arrays
+                (entries, both exits; nst, ovf), one bool lane array, the
+                LUTs as int32
       epilogue  the records, e_fin, nst, the overflow and live flags, the
                 two int32 sums and _lane_sums' temporaries (or, after
                 them, the int64 prefix sum and its difference)
@@ -616,29 +635,38 @@ def decode_bytes(B: int, NC: int, ST: int, h: int, bpl: int, *,
                 uint8 image and B6's scratch
     plus B-sized tensors, each counted at the allocator's 512 bytes.
 
-    One image always launches (models/decoder.plan_sub_batches), and it
-    fits the 80 GB card: the walk gate's largest raster, 5824 x 7680 x 3
-    (134.2 M bytes), with a stream as long as its raster (the encoder
-    stores a longer one), has 2.1 M lanes, and its PK=1 decode counts
-    3 x 4.5 GB of records + 2 x 4.5 GB of meta and metb at k8 = 536 +
-    0.5 GB of raster, image and scratch = 23.0 GB here (4.5 GB on walk8);
-    its meta and metb take 8 bytes a lane and a trimmed row, so a decode
-    whose steps stay within walk8's 96 rows holds about 15.6 GB."""
+    The plan (models/decoder.dispatch_kernel) asks this before launching
+    any tier, so the sizes matter where one image comes near the card.
+    The largest raster the walk takes (fits: h * (bpl + 1) < 2^30, 1 074 M
+    bytes), with a stream as long as its raster (the encoder stores a
+    longer one), has 16.8 M lanes of 64-bit positions: its walk8 decode
+    counts 96 rows x 16 B (position, two record words) + 8 B of meta and
+    metb a lane, 38.7 GB, and 3.2 GB of raster, image and scratch; its PK=1
+    decode, 536 rows x 24 B a lane, 216 GB, past any card, so the plan
+    never launches it and an overflow of that walk8 decode takes the
+    chunked decode.  The 10800 x 21600 x 3 whole-globe raster (699.85 M
+    bytes) with a stream as long as its raster (10.9 M lanes) counts
+    27.2 GB on walk8 and 143 GB on PK=1; its 1-pass mosaic, whose stream
+    is about half its raster, about 13 GB and 70 GB."""
+    ps = 8 if pos_dtype(NC) == torch.int64 else 4
     lane, flag = _block(4 * B * NC), _block(B * NC)
+    plane = _block(ps * B * NC)
     rec = _block(4 * B * ST * NC)
+    prec = _block(ps * B * ST * NC)  # the position records
     few = 16 * _block(24 * B)
     R = min(_EPI_ROWS, ST)
-    slab = _block(4 * B * R * NC) + 3 * _block(B * R * NC) + lane
-    walk = 3 * rec + 5 * lane + flag + _block(4 * 4096 * B) + few
-    epilogue = 3 * rec + 4 * lane + 2 * flag + few + \
+    slab = _block(ps * B * R * NC) + 3 * _block(B * R * NC) + plane
+    walk = prec + 2 * rec + 3 * plane + 2 * lane + flag + \
+        _block(4 * 4096 * B) + few
+    epilogue = prec + 2 * rec + plane + 3 * lane + 2 * flag + few + \
         max(slab, 2 * _block(8 * B * NC) + lane)
     if not finish:
         return max(walk, epilogue)
     _, strip, bands, strips = tiling(h, bpl)
     meta = rec  # (B, k8, NC) int32 at the worst k8 = ST
-    fin = 3 * rec + 3 * lane + 2 * meta + _block(2 * B * h * bpl) + \
-        _block(B * h * bpl) + _block(_scratch_bytes(B, strip, bands, strips)) \
-        + few
+    fin = prec + 2 * rec + plane + 2 * lane + 2 * meta + \
+        _block(2 * B * h * bpl) + _block(B * h * bpl) + \
+        _block(_scratch_bytes(B, strip, bands, strips)) + few
     return max(walk, epilogue, fin)
 
 
@@ -651,9 +679,10 @@ def finish_decode(finalize, records, e_fin, out0, zlib_len, *, k8: int,
     bpl = w * c
     meta, metb, chk = finalize(*records, e_fin, out0, k8=k8, h=h, bpl=bpl,
                                c=c)
+    inf = torch.iinfo(chk.dtype).max
     chk = chk.to(torch.int64)
     eob_end = chk[:, 1]
-    ok = (chk[:, 0] == 0) & (eob_end != INF) & (eob_end <= chk[:, 2]) & \
+    ok = (chk[:, 0] == 0) & (eob_end != inf) & (eob_end <= chk[:, 2]) & \
         (((eob_end + 7) >> 3) == zlib_len.to(torch.int64) - 4)
     raster = scatter_packed16(meta, metb, h * bpl)
     return expand(raster, h=h, w=w, c=c), ok

@@ -144,10 +144,11 @@ def training_step(mesh: Mesh, imgs, num_chans: int) -> torch.Tensor:
 def decode_batch_sharded(mesh: Mesh, pngs: list, h: int, w: int, ch: int):
     """Device decode of same-shape dynamic-block fpng files with the batch
     split over the mesh: each shard goes through the decode dispatch
-    (models/decoder.dispatch_kernel: walk8, then PK=1 on an overflow; the
-    chunked decode past the walk gate) on its device, and images whose
-    chunked walk could not finish go to the host decoder, as in
-    decode_batch.  The paths and hand-offs count in decode_batch's
+    (models/decoder.dispatch_kernel: walk8, then PK=1 on an overflow, the
+    tiers planned by the shard's card memory; the chunked decode past the
+    walk path's raster limit or where no walk fits) on its device, and
+    images whose chunked walk could not finish go to the host decoder, as
+    in decode_batch.  The paths and hand-offs count in decode_batch's
     counters.  Returns (imgs (B, h, w, ch) uint8, ok (B,) bool) as numpy
     arrays.
 
@@ -198,7 +199,7 @@ def full_step_sharded(mesh: Mesh, images, num_chans: int):
     with its fused token histogram (encode_kernel's want_hist), then the
     histograms' mesh-wide reduction (training_step's collective).
 
-    Returns (words (B, num_words) int32, total_bits (B,) int32, adler (B,)
+    Returns (words (B, num_words) int32, total_bits (B,) int64, adler (B,)
     int64, ghist (288,) int64), all on the mesh's first device; ghist
     equals training_step(mesh, images, num_chans).
     """

@@ -2,12 +2,13 @@
 
     python -m fpng_tpu_torch.tools.decode_memory edge|a|b|epilogue
 
-edge      the walk gate's edge raster, 1 x 5824 x 7680 x 3 (chip_smoke.py's
-          walk_gate_edge), through each stage of the walk8 decode and of
-          the PK=1 decode in turn - the walk, the epilogue (walk_offsets),
-          the finalize, B5, B6 - with the peak of each stage over what was
-          on the card before the walk (peaks reset between stages; what a
-          decode holds stays held), then each whole decode's peak
+edge      the raster at fpng_tpu's walk gate's edge, 1 x 5824 x 7680 x 3
+          (chip_smoke.py's walk_gate_edge), through each stage of the
+          walk8 decode and of the PK=1 decode in turn - the walk, the
+          epilogue (walk_offsets), the finalize, B5, B6 - with the peak of
+          each stage over what was on the card before the walk (peaks
+          reset between stages; what a decode holds stays held), then each
+          whole decode's peak
 a         case A of chip_smoke.py's memory_plan phase: twelve edge rasters,
           each a mosaic of its own rng seed, encoded one at a time and
           decoded in one decode_batch call on PK=1 (FPNG_TPU_WALK8=0)
@@ -36,7 +37,7 @@ import time
 
 import numpy as np
 
-EDGE = (5824, 7680)  # the tallest raster 7680 x 3 wide that walk8.fits admits
+EDGE = (5824, 7680)  # the tallest 7680 x 3 raster fpng_tpu's walk gate admits
 FRAME = (2160, 3840)
 CASE_A_IMAGES = 12
 CASE_B_ZLIB = 200_000_000  # bytes of zlib in case B's group, at least
@@ -145,7 +146,10 @@ def stage_peaks(torch, dargs, nc: int, h: int, w: int, c: int, tier: str):
                           if tier == "walk8" else
                           (PK.walk_fix, PK.finalize_records, PK.ST8))
     st, lut, p0, zl = dargs
+    # positions as the walk takes them (int64 past 2^31 bits; an older
+    # checkout has only int32)
     i32 = torch.int32
+    pdt = getattr(W, "pos_dtype", lambda n: i32)(nc)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     peaks = {}
@@ -159,8 +163,8 @@ def stage_peaks(torch, dargs, nc: int, h: int, w: int, c: int, tier: str):
         return out
 
     out = stage("walk", lambda: walk(
-        W.stream_words(st), lut.to(i32).contiguous(), p0.to(i32),
-        (zl * 8).to(i32), n_chunks=nc))
+        W.stream_words(st), lut.to(i32).contiguous(), p0.to(pdt),
+        (zl * 8).to(pdt), n_chunks=nc))
     records, e_fin, out0, steps, ovf, _ = stage(
         "epilogue", lambda: W.walk_offsets(lambda *a, **k: out, st, lut, p0,
                                            zl, n_chunks=nc))

@@ -104,9 +104,9 @@ def test_encfuse_matches_plain(rng, shape, nw_cut, zero_tiles):
 
 
 def test_encfuse_saturates_like_plain(rng):
-    """B1's int64 bit offsets past 2^31: total_bits and last_tok saturate
-    at 2^31 - 1 as the plain version's do, and no unit lands in the
-    words."""
+    """B1's int64 bit offsets past 2^31: total_bits and last_tok are the
+    plain version's exact int64 counts, no longer saturated at 2^31 - 1,
+    and no unit lands in the words."""
     imgs = np.stack([make_test_image(rng, 20, 30, 3, k)
                      for k in ("mixed", "noise")])
     dev = torch.device("cuda")
@@ -116,7 +116,7 @@ def test_encfuse_saturates_like_plain(rng):
     want = encode_bits_plain(desc.cpu(), tbl.cpu(), base.cpu(), 1024)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    assert (got[1] == 2 ** 31 - 1).all() and not got[0].any()
+    assert (got[1] > 2 ** 31 - 1).all() and not got[0].any()
 
 
 # (chunks K, payload end bytes per image as a function of N = 4 * NW,
@@ -822,3 +822,77 @@ def test_decode_memory_model_and_split_on_card(kind):
     split = dispatch_kernel(*args, **kw, mem_budget=budget)
     assert decode_batch.sub_batches - s0 == 2 and split[3] == whole[3]
     assert torch.equal(split[0], whole[0]) and torch.equal(split[1], whole[1])
+
+
+@pytest.mark.parametrize("case", ["rgb_1pass", "multiblock"])
+def test_wide_walk8_kernels_match_plain(case, monkeypatch):
+    """B3 and B4 at 64-bit positions (the kernels' instance for streams of
+    2^31 bits or more, forced here by lowering ops/walk8.POS32_BITS)
+    against their plain versions, and the decode against the raster."""
+    monkeypatch.setattr(W, "POS32_BITS", 0)
+    imgs, (stream, luts, p0, zl) = _walk_inputs(case)
+    B, h, w, c = imgs.shape
+    nc = W.n_chunks(int(zl.max()))
+    i64 = torch.int64
+    args = (W.stream_words(stream), luts, p0.to(i64), zl.to(i64) * 8)
+    got = W.walk_fix8(*[a.cuda() for a in args], n_chunks=nc)
+    torch.cuda.synchronize()
+    want = W.walk_fix8_plain(*args, n_chunks=nc)
+    assert got[0].dtype == got[3].dtype == want[3].dtype == i64
+    _walk_equal(got, want)
+    e_fin, nst = got[0], got[1]
+    out0 = torch.arange(nc, dtype=torch.int32, device="cuda")[None] \
+        .expand(B, nc).contiguous() * 37
+    for k8 in (8, got[3].shape[1]):
+        kw = dict(k8=k8, h=h, bpl=w * c, c=c)
+        gk = W.finalize_records8(*got[3:6], nst, e_fin, out0, **kw)
+        wk = W.finalize_records8_plain(*(t.cpu() for t in got[3:6]),
+                                       nst.cpu(), e_fin.cpu(), out0.cpu(),
+                                       **kw)
+        assert gk[2].dtype == i64
+        for g, w_ in zip(gk, wk):
+            assert torch.equal(g.cpu(), w_)
+    img, ok, seed = W.decode_kernel8(stream.cuda(), luts.cuda(), p0.cuda(),
+                                     zl.cuda(), h=h, w=w, c=c,
+                                     zlib_len_max=int(zl.max()))
+    assert seed is None and bool(ok.all())
+    assert np.array_equal(img.cpu().numpy(), imgs)
+
+
+def test_wide_pk1_resumes_and_decodes_on_card(monkeypatch):
+    """walk8 -> PK=1 at 64-bit positions: the seeded B8 against its plain
+    version (2 passes), B9's check triple with int64's "no position", and
+    decode_batch's pixels."""
+    monkeypatch.setattr(W, "POS32_BITS", 0)
+    imgs, pngs, (stream, luts, p0, zl) = _overflowing_batch()
+    nc = W.n_chunks(int(zl.max()))
+    i64 = torch.int64
+    args = (W.stream_words(stream), luts, p0.to(i64), zl.to(i64) * 8)
+    cargs = [a.cuda() for a in args]
+    b3 = W.walk_fix8(*cargs, n_chunks=nc)
+    seed = W.resume_seed(*b3[3:6], b3[1], b3[0])
+    assert seed.dtype == i64
+    want = PK.walk_fix_plain(*args, n_chunks=nc, seed=seed.cpu())
+    got = PK.walk_fix(*cargs, n_chunks=nc, seed=seed)
+    _walk_equal(got, want)
+    assert int(got[6]) == 2
+    sts, outs = T.decode_batch(pngs, 4, device="cuda")
+    assert sts == [0, 0]
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+
+
+def test_wide_encoder_counts_on_card(rng):
+    """B1's int64 total_bits and last_tok against its plain version, read
+    by B2, and the files equal the CPU's."""
+    imgs = np.stack([make_test_image(rng, 40, 70, 3, k)
+                     for k in ("mixed", "flat")])
+    want_files = T.encode_batch(imgs, 0, device="cpu")
+    dev = torch.device("cuda")
+    desc, tbl, base = _desc(imgs, dev)
+    nw = _num_words(_budget(40, 70, 3))
+    got = encode_bits_fused(desc, tbl, base, nw)
+    want = encode_bits_plain(desc.cpu(), tbl.cpu(), base.cpu(), nw)
+    assert got[1].dtype == got[2].dtype == torch.int64
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert T.encode_batch(imgs, 0, device="cuda") == want_files

@@ -130,14 +130,17 @@ def test_b1_plain_drops_words_past_the_buffer():
 
 
 def test_b1_plain_saturates_totals_past_int32():
-    """Bit offsets are int64; total_bits and last_tok saturate at 2^31 - 1
-    (a stream that long is past every word and the stored-fallback budget),
-    as kernel B1's int32 outputs do."""
+    """Bit offsets are int64, and so are total_bits and last_tok, as kernel
+    B1's outputs: a stream past 2^31 bits keeps its exact counts, no longer
+    saturated at 2^31 - 1."""
     imgs = _batch(16, 16, 3)
     _, (td, tt), (_, _, base) = _descs(imgs)
     words, total, last = encode_bits_plain(td, tt, torch.from_numpy(base), 64)
     near = torch.full_like(torch.from_numpy(base), 2 ** 31 - 100)
     w2, t2, l2 = encode_bits_plain(td, tt, near, 64)
-    assert (t2 == 2 ** 31 - 1).all() and (l2 == 2 ** 31 - 1).all()
+    assert t2.dtype == l2.dtype == torch.int64
+    shift = 2 ** 31 - 100 - torch.from_numpy(base).to(torch.int64)
+    assert torch.equal(t2, total + shift) and torch.equal(l2, last + shift)
+    assert (t2 > 2 ** 31 - 1).all() and (l2 > 2 ** 31 - 1).all()
     assert not w2.any()  # every unit lands past the 64 words
     assert (total < 2 ** 31 - 1).all() and (last < total).all()

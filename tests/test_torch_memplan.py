@@ -221,10 +221,18 @@ def test_split_decode_matches_fpng_tpu_and_the_unsplit_one(split_case):
 
 
 def test_sharded_split_decode_matches_fpng_tpu(split_case, monkeypatch):
-    """decode_batch_sharded over two CPU shards with a budget under one
-    image: every image is its own sub-batch (one image always launches)."""
-    imgs, pngs, _, _, (f_sts, f_imgs), whole = split_case
-    monkeypatch.setattr(TD, "_free_bytes", lambda device: 1)
+    """decode_batch_sharded over two CPU shards with a budget for one
+    image's PK=1 decode a sub-batch and no more: every image is its own
+    sub-batch.  (A budget under one image's PK=1 decode no longer launches
+    it there: test_torch_globe.py holds the tiers.)"""
+    imgs, pngs, args, _, (f_sts, f_imgs), whole = split_case
+    zl, half = args[3], len(SPLIT) // 2
+    ncs = [TW.n_chunks(int(zl[a:a + half].max())) for a in (0, half)]
+    out = half * 32 * 128
+    budget = max(TW.decode_bytes(1, n, TS.ST8, 32, 128) for n in ncs) + out
+    assert all(TW.decode_bytes(2, n, TS.ST8, 32, 128) + out > budget
+               for n in ncs)
+    monkeypatch.setattr(TD, "_free_bytes", lambda device: budget)
     n0 = TD.decode_batch.sub_batches
     got, ok = TM.decode_batch_sharded(TM.make_mesh(["cpu", "cpu"]), pngs,
                                       32, 32, 4)

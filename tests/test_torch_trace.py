@@ -201,9 +201,15 @@ def test_registry_totals_self_and_counts_add_up(monkeypatch, fresh, pngs,
     T.decode_batch(pngs, 3, device="cpu")  # traced: spans is a dict
     snap = trace.snapshot()
     assert snap["calls"] == {"decode_batch": 1}
-    assert snap["counters"] == {  # one walk8 walk, no PK=1
+    counters = dict(snap["counters"])
+    # the walk8 tier's card clock: on the CPU, host-clock readings
+    assert 0 < counters.pop("decoder.walk8_card_s") <= \
+        snap["spans"]["decoder.walk8"]["total_s"]
+    walked = 4  # the dynamic-block files, planned on walk8 -> PK=1
+    assert counters == {  # one walk8 walk, no PK=1
         "decoder.walk8_walks": 1,
-        "decoder.walk8_passes": TW.walk_fix8.passes - passes8}
+        "decoder.walk8_passes": TW.walk_fix8.passes - passes8,
+        "decoder.images": walked, "decoder.tier.walk8_pk1": walked}
     sp = _add_up(snap, DECODE_TREE, 1, {"transfer.stage": 4})
     dev = sp["decoder.device"]
     assert dev["total_s"] - dev["self_s"] == pytest.approx(
@@ -249,6 +255,41 @@ def test_pk1_tier_counts_its_passes_and_its_card_time(monkeypatch, fresh,
     # they cover less than the tier's span, but most of it
     assert 0.5 * sp["decoder.pk1"]["total_s"] < cnt["decoder.pk1_card_s"] \
         <= sp["decoder.pk1"]["total_s"]
+    # the walk8 tier's clock likewise, and the plan's counts: two images
+    # planned on walk8 -> PK=1, none on the chunked decode
+    assert 0 < cnt["decoder.walk8_card_s"] <= sp["decoder.walk8"]["total_s"]
+    assert cnt["decoder.images"] == cnt["decoder.tier.walk8_pk1"] == 2
+    assert "decoder.chunked_images" not in cnt
+
+
+@pytest.mark.parametrize("why", ["past_limit", "no_room"])
+def test_plan_counts_the_chunked_images_and_why(monkeypatch, fresh,
+                                                pk1_pngs, why):
+    """The chunked decode's images, counted in the plan with the reason:
+    past the walk path's raster limit (ops/walk8.fits refuses), or with no
+    room for the image's walk on the card (a budget under one walk8
+    decode, and the chunked decode's model patched to fit it); the readers
+    decoder.chunked_share and decoder.walk8_card_ms read 100% and
+    nothing."""
+    imgs, pk1 = pk1_pngs
+    if why == "past_limit":
+        monkeypatch.setattr(TD, "fits", lambda h, bpl: False)
+    else:
+        monkeypatch.setattr(TD, "_free_bytes", lambda device: 1)
+        monkeypatch.setattr(TD, "chunked_bytes", lambda *a: 0)
+    prof, _ = _session(monkeypatch)
+    with prof:
+        sts, got = T.decode_batch(pk1, 4, device="cpu")
+    assert sts == [0, 0]
+    assert all(np.array_equal(a, b) for a, b in zip(got, imgs))
+    cnt = trace.snapshot()["counters"]
+    assert cnt["decoder.images"] == cnt["decoder.chunked_images"] == 2
+    assert cnt["decoder.chunked_" + why] == 2
+    other = "no_room" if why == "past_limit" else "past_limit"
+    assert "decoder.chunked_" + other not in cnt
+    assert "decoder.walk8_card_s" not in cnt
+    assert _reader("decoder.chunked_share")({"op": "decode"}) == 100.0
+    assert _reader("decoder.walk8_card_ms")({"op": "decode"}) is None
 
 
 def test_stream_batches_are_calls_of_their_own(monkeypatch, fresh, pngs,
@@ -289,7 +330,9 @@ SNAP = {"calls": {"decode_batch": 4, "encode_batch": 5},
                                      "self_s": 0.09}},
         "counters": {"decoder.pk1_card_s": 0.4, "decoder.pk1_walks": 4,
                      "decoder.pk1_passes": 3844, "decoder.walk8_walks": 8,
-                     "decoder.walk8_passes": 7688}}
+                     "decoder.walk8_passes": 7688,
+                     "decoder.walk8_card_s": 0.3, "decoder.images": 8,
+                     "decoder.chunked_images": 2}}
 
 
 @pytest.mark.parametrize("metric,op,want", [
@@ -302,7 +345,11 @@ SNAP = {"calls": {"decode_batch": 4, "encode_batch": 5},
     ("decoder.pk1_passes", "decode", 961.0),
     ("decoder.pk1_passes", "encode", None),
     ("decoder.walk8_passes", "decode", 961.0),
-    ("decoder.walk8_passes", "encode", None)])
+    ("decoder.walk8_passes", "encode", None),
+    ("decoder.walk8_card_ms", "decode", 75.0),
+    ("decoder.walk8_card_ms", "encode", None),
+    ("decoder.chunked_share", "decode", 25.0),
+    ("decoder.chunked_share", "encode", None)])
 def test_readers_of_the_registry(monkeypatch, metric, op, want):
     monkeypatch.setattr(trace, "snapshot", lambda: SNAP)
     got = _reader(metric)({"op": op})
@@ -312,7 +359,9 @@ def test_readers_of_the_registry(monkeypatch, metric, op, want):
 @pytest.mark.parametrize("metric", ["encoder.host_ms", "transfer.stage_ms",
                                     "decoder.pk1_card_ms",
                                     "decoder.pk1_passes",
-                                    "decoder.walk8_passes"])
+                                    "decoder.walk8_passes",
+                                    "decoder.walk8_card_ms",
+                                    "decoder.chunked_share"])
 def test_readers_find_nothing_without_calls_or_a_registry(monkeypatch,
                                                           metric):
     read = _reader(metric)

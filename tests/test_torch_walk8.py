@@ -470,14 +470,21 @@ def test_raster_past_the_gate_takes_the_chunked_decode(walk8, monkeypatch):
 
 
 @pytest.mark.parametrize("h,w,c,fits", [
-    (2160, 3840, 3, True), (8184, 4096, 4, True), (8189, 4096, 4, False),
-    (1, 1, 3, True), (9000, 4000, 4, False), (5824, 7680, 3, True),
-    (5832, 7680, 3, False)])
+    (2160, 3840, 3, True), (8184, 4096, 4, True), (8189, 4096, 4, True),
+    (1, 1, 3, True), (9000, 4000, 4, True), (5824, 7680, 3, True),
+    (5832, 7680, 3, True), (46601, 7680, 3, True), (46602, 7680, 3, False),
+    (16384, 16384, 4, False), (10800, 21600, 3, True)])
 def test_walk8_gate_counts_allocated_rows(h, w, c, fits):
-    """8189 rows of 16384 slots fit in 2^27, but their 8192 allocated
-    rows do not.  5824 x 7680 x 3 is the tallest 4K-wide raster the gate
-    admits (chip_smoke.py's walk_gate_edge phase)."""
+    """The walk path's limit is the port's own, h * (bpl + 1) < 2^30 (B4's
+    int32 output offsets), counted on the raster with its filter bytes and
+    no row padding.  fpng_tpu's gate (2^27 allocated slots) refused 8189
+    rows of 16384 slots, 9000 x 16000 and 5832 x 23040; the port walks
+    them.  46601 x 7680 x 3 is the tallest 4K-wide raster under 2^30
+    (chip_smoke.py's walk_gate_edge phase), 16384 x 16384 x 4 lies just
+    past it, and the 10800 x 21600 x 3 whole-globe raster (699.85 M
+    bytes) lies within it."""
     assert TW.fits(h, w * c) == fits
+    assert fits == (h * (w * c + 1) < 1 << 30)
 
 
 @pytest.mark.parametrize("steps,want", [(0, 8), (8, 8), (9, 16), (69, 80),
