@@ -18,7 +18,10 @@ builds the port's CUDA kernels from fpng_tpu_torch/csrc, then:
      launch_assemble counted by torch.profiler; then B3 once more on the
      32 bpp 1-pass corpus, whose overflowing lanes walk on to exact exits,
      so B3 reaches B8's entries and passes and B8 resumes from them in 2
-     passes (each walk is one launch); B6 is held
+     passes (each walk is two launches: the walk's and the jump's); B3
+     and the unseeded B8 on the RGBA benchmark's first content call
+     (pngbench.tiles.bank(4, 256, 128)), whose crawling tiles engage the
+     jump, against their plain versions, control words included; B6 is held
      against its plain version on every decode's raster below as well;
   4. drives encode_batch / decode_batch (and the single-image entry
      points) at the headline size, 128 x 256 x 256 x 3: the decode takes
@@ -569,8 +572,10 @@ def phase_kernels(torch, imgs):
         return W.walk_fix8_plain(words8, lut32, p0_32, zl8_32, n_chunks=nc)
 
     n0 = W.walk_fix8.launches
-    g4, w4 = walk(), walk_plain()
-    check(W.walk_fix8.launches == n0 + 1, "B3 is not one launch a walk")
+    g4, c4, k4 = walk_once(W, walk)
+    w4 = walk_plain()
+    check(W.walk_fix8.launches == n0 + 1, "B3 did not count one walk")
+    check(k4 == 2, f"B3 launched {k4} kernels, not the walk's and the jump's")
     check(not bool(g4[2].any()), "the headline corpus overflows walk8")
     e3 = walk_err(torch, "B3", g4, w4)
     steps_sum = int(g4[1].sum())
@@ -578,7 +583,8 @@ def phase_kernels(torch, imgs):
         max_abs_err=e3,
         ms=cuda_ms(torch, walk, 5), plain_ms=cuda_ms(torch, walk_plain, 1),
         bound=walk_bound(words8, lut32, g4, Bd, nc),
-        **walk_counts(W, g4), shape=[Bd, nc], recorded_steps=steps_sum)
+        **walk_counts(W, g4, c4, k4), shape=[Bd, nc],
+        recorded_steps=steps_sum)
 
     records, e_fin, out0, steps, ovf, _ = W.decode_walk8(
         st_d, lut32, p0_d, zl_d, n_chunks=nc)
@@ -693,11 +699,22 @@ def walk_bound(words, lut32, out, Bd, nc):
                  (ps + 8) * steps_sum + (ps + 12) * Bd * nc, 30 * steps_sum)
 
 
-def walk_counts(W, out):
-    """The walk's passes, its launch geometry, and the serial floor the
-    design reaches for: passes x the longest walk of a lane, in steps."""
+def walk_once(W, walk):
+    """Run `walk` once: its outputs, its control words (ops/walk8.walk_ctl,
+    on the host) and the kernels it launched (walk_cuda.kernels)."""
+    k0 = W.walk_cuda.kernels
+    out = walk()
+    return out, W.walk_ctl.last.cpu(), W.walk_cuda.kernels - k0
+
+
+def walk_counts(W, out, ctl, kernels):
+    """The walk's kernels launched, its passes, the images its jump mapped
+    and their replay passes (its control words), its launch geometry, and
+    the serial floor the design reaches for: passes x the longest walk of
+    a lane, in steps."""
     passes = int(out[6])
-    return dict(launches_per_walk=1, passes=passes,
+    return dict(launches_per_walk=kernels, passes=passes,
+                jump_images=int(ctl[4]), jump_replay_passes=int(ctl[5]),
                 step_rows=int(out[3].shape[1]),
                 max_lane_steps=int(out[1].max()),
                 serial_floor_steps=passes * int(out[1].max()),
@@ -723,8 +740,9 @@ def phase_walk8_overflow(torch, T, imgs):
         return W.walk_fix8(words, lut32, p0_32, zl8, n_chunks=nc)
 
     n0 = W.walk_fix8.launches
-    g = walk()
-    check(W.walk_fix8.launches == n0 + 1, "B3 is not one launch a walk")
+    g, gc, kernels = walk_once(W, walk)
+    check(W.walk_fix8.launches == n0 + 1, "B3 did not count one walk")
+    check(kernels == 2, f"B3 launched {kernels} kernels, not two")
     w = W.walk_fix8_plain(words, lut32, p0_32, zl8, n_chunks=nc)
     live = W._lane_geometry(zl8, nc)[1]
     ovf = (w[2] & live).any(dim=1)
@@ -753,11 +771,54 @@ def phase_walk8_overflow(torch, T, imgs):
          b8_resumed_passes=int(r[6]), max_abs_err=err,
          ms=cuda_ms(torch, walk, 5), b8_resumed_ms=cuda_ms(torch, resumed, 5),
          bound_ms=walk_bound(words, lut32, g, Bd, nc)[0],
-         **walk_counts(W, g))
+         **walk_counts(W, g, gc, kernels))
     B, H, W_, Cc = imgs.shape
     check_expand(torch, pk1_raster(torch, dec_args, nc, H, W_ * Cc, Cc),
                  imgs[device_decoded(pngs)], "the PK=1 decode of the 32 bpp "
                  "1-pass corpus")
+
+
+def phase_walk8_jump(torch, T):
+    """B3 and the unseeded B8 on the RGBA benchmark's first content call
+    (pngbench.tiles.bank(4, 256, 128), 1-pass), whose gradient tiles with
+    alpha ramps crawl: each walk maps some of its images after pass JUMP
+    and replays them (control word 4 above 0), in two launches, to the
+    plain versions' outputs, passes, images mapped and replay passes, and
+    B3's entries and passes are B8's.  The line gives each walk's counts
+    and CUDA-event time."""
+    from fpng_tpu_torch.ops import specdec_tpu as PK
+    from fpng_tpu_torch.ops import walk8 as W
+    from pngbench.tiles import bank
+
+    pngs = T.encode_batch(bank(4, 256, 128), 0, device=DEV)
+    Bd, _, (words, lut32, p0_32, zl8), nc = pack_batch(torch, pngs)
+    res, err, b3 = {}, 0, None
+    for name, walk, plain in (
+            ("walk_fix8", W.walk_fix8, W.walk_fix8_plain),
+            ("walk_fix", PK.walk_fix, PK.walk_fix_plain)):
+        def run():
+            return walk(words, lut32, p0_32, zl8, n_chunks=nc)
+
+        g, gc, kernels = walk_once(W, run)
+        w = plain(words, lut32, p0_32, zl8, n_chunks=nc)
+        wc = W.walk_ctl.last.cpu()
+        check(kernels == 2, f"{name} launched {kernels} kernels, not two")
+        check(int(gc[4]) > 0, f"{name} mapped no image of the RGBA call")
+        check(gc[3:].tolist() == wc[3:].tolist(), f"{name} control words "
+              f"{gc[3:].tolist()} != plain {wc[3:].tolist()}")
+        err = max(err, walk_err(torch, f"{name} (RGBA content call)", g, w))
+        del w
+        torch.cuda.empty_cache()
+        res[name] = dict(ms=cuda_ms(torch, run, 3),
+                         **walk_counts(W, g, gc, kernels))
+        if b3 is None:
+            b3 = g
+        else:
+            check(torch.equal(b3[0], g[0]) and int(b3[6]) == int(g[6]),
+                  "B3's entries or passes on the RGBA call are not B8's")
+        del g
+    line("walk8_jump", corpus="tile_rgba content call 0", shape=[Bd, nc],
+         max_abs_err=err, **res)
 
 
 def profiler_line(prof):
@@ -811,13 +872,16 @@ def phase_pk1(torch, T, imgs):
         return PK.walk_fix_plain(words, lut32, p0_32, zl8_32, n_chunks=nc)
 
     n0 = PK.walk_fix.launches
-    g, w = walk(), walk_plain()
-    check(PK.walk_fix.launches == n0 + 1, "B8 is not one launch a walk")
+    g, gc, kernels = walk_once(W, walk)
+    w = walk_plain()
+    check(PK.walk_fix.launches == n0 + 1, "B8 did not count one walk")
+    check(kernels == 2, f"B8 launched {kernels} kernels, not two")
     err = walk_err(torch, "B8", g, w)
     res = {"walk_fix": dict(
         max_abs_err=err, ms=cuda_ms(torch, walk, 3),
         plain_ms=cuda_ms(torch, walk_plain, 1),
-        bound=walk_bound(words, lut32, g, Bd, nc), **walk_counts(W, g),
+        bound=walk_bound(words, lut32, g, Bd, nc),
+        **walk_counts(W, g, gc, kernels),
         shape=[Bd, nc], recorded_steps=int(g[1].sum()),
         walk8_overflow_images=n_ovf)}
 
@@ -825,7 +889,7 @@ def phase_pk1(torch, T, imgs):
         return PK.walk_fix(words, lut32, p0_32, zl8_32, n_chunks=nc,
                            seed=seed8.clone())
 
-    gr = walk_resumed()
+    gr, grc, kernels = walk_once(W, walk_resumed)
     wr = PK.walk_fix_plain(words, lut32, p0_32, zl8_32, n_chunks=nc,
                            seed=seed8.clone())
     check(int(gr[6]) == 2 and torch.equal(gr[0], g[0]),
@@ -836,7 +900,8 @@ def phase_pk1(torch, T, imgs):
             torch, lambda: PK.walk_fix_plain(
                 words, lut32, p0_32, zl8_32, n_chunks=nc,
                 seed=seed8.clone()), 1),
-        bound=walk_bound(words, lut32, gr, Bd, nc), **walk_counts(W, gr),
+        bound=walk_bound(words, lut32, gr, Bd, nc),
+        **walk_counts(W, gr, grc, kernels),
         shape=[Bd, nc], recorded_steps=int(gr[1].sum()))
 
     def b9(key, tag, walk):
@@ -2177,6 +2242,7 @@ def main():
     kres.update(phase_demote(torch, mode_imgs[4]))
     kres.update(phase_pk1(torch, T, mode_imgs[3]))
     phase_walk8_overflow(torch, T, mode_imgs[4])
+    phase_walk8_jump(torch, T)
 
     # --- 4. main path at the benchmark's headline size: walk8 decode ---------
     reset()
@@ -2185,7 +2251,7 @@ def main():
     launches = read()
     check(all(launches[k] > 0 for k in walk8_path),
           f"a kernel of the walk8 path never launched: {launches}")
-    check(launches["walk_fix8"] == 1, "B3 launched more than once a walk")
+    check(launches["walk_fix8"] == 1, "B3 walked more than once a call")
     check(launches["crc32_words_masked_raw"] == 1 and
           launches["expand"] == 1 and launches["encode_bits_fused"] == 1,
           "B1, B2 or B6 not one launch a call")

@@ -57,9 +57,10 @@ def walk_fix(words, lut, p0, zl8, *, n_chunks: int, seed=None):
     2 passes to the same entries, offsets and deposits.  The seed is the
     walk's entry buffer (ops/walk8.walk_cuda): it is returned as e_fin.
 
-    A CUDA tensor launches csrc/walk8.cu once for the whole walk;
-    `walk_fix.launches` counts the launches and `walk_fix.passes` the
-    passes that decode_kernel_pk1 reads back.
+    A CUDA tensor runs the whole walk in csrc/walk8.cu's launch and the
+    jump's after it (ops/walk8.walk_cuda); `walk_fix.launches` counts the
+    walks and `walk_fix.passes` the passes that decode_kernel_pk1 reads
+    back.
     """
     if words.device.type == "cpu":
         return walk_fix_plain(words, lut, p0, zl8, n_chunks=n_chunks,

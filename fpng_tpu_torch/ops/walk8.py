@@ -70,6 +70,11 @@ MAXIT = 12        # step slots per lane: ST = 8 * maxit (as fpng_tpu's)
 _MEMB = 32        # fixpoint membership window, in steps (as fpng_tpu's)
 CAP = S + 24      # steps a walk takes at most: one a bit, plus the token
                   # tail (the PK=1 walk's rows, ops/specdec_tpu.ST8)
+JUMP = 16         # the fixpoint pass after which a walk still moving is
+                  # replayed on maps (csrc/walk8.cu kJumpPass)
+MAP = 18          # entry offsets a lane's maps cover: an exit lies under
+                  # 18 bits (a token's most) past its chunk end; the jump
+                  # needs MAP + 1 rows a lane (csrc/walk8.cu kMap)
 INF = 0x7FFFFFFF  # "no position" of an int32 check triple
 # bit positions are int32 below this many bits a stream, else int64
 POS32_BITS = 1 << 31
@@ -168,6 +173,109 @@ def _walk_plain(words64, lut64, ent, bound, act, posr, raw0, raw1,
     return pos, torch.clamp(n, max=ST), (n > ST) | act
 
 
+def _map_plain(words64, lut64, pos, bound, act, lo, M: int):
+    """Walk every lane with `act` set from `pos`, unrecorded, as
+    _walk_plain walks it; returns (exit, mask): bit o < MAP of mask is set
+    where one of the first M steps starts at lo + o or has its second
+    literal there (csrc/walk8.cu walk_map)."""
+    nw = words64.shape[1] - 2
+    pos = pos.clone()
+    mask = torch.zeros_like(pos)
+    for j in range(CAP):
+        if not bool(act.any()):
+            break
+        wi = torch.clamp(pos >> 5, max=nw)
+        sh = pos & 31
+        w = ((torch.gather(words64, 1, wi) >> sh) |
+             (torch.gather(words64, 1, wi + 1) << (32 - sh))) & MASK32
+        e = torch.gather(lut64, 1, w & 0xFFF)
+        sym, clen, l2 = e & 511, (e >> 9) & 15, (e >> 25) & 15
+        two = (sym < 256) & (clen != 0) & (l2 > 0)
+        if j < M:
+            for d in (pos - lo, torch.where(two, pos - lo + clen, -1)):
+                hit = act & (d >= 0) & (d < MAP)
+                mask |= torch.where(
+                    hit, torch.ones_like(d) << torch.clamp(d, 0, MAP - 1), 0)
+        adv = act & (clen != 0)
+        is_m = (sym > 256) & (sym <= 285)
+        tok = clen + torch.where(is_m, ((e >> 13) & 7) + 1, 0) + \
+            torch.where(two, l2, 0)
+        pos = torch.where(adv, pos + tok, pos)
+        act = adv & (pos < bound)
+    return pos, mask
+
+
+def _jump_plain(words64, lut64, p0, bit0, live, bound, ent, ex, nst, posr,
+                raw0, raw1):
+    """csrc/walk8.cu's jump on the state after pass JUMP: the images
+    with a lane whose entry is not its predecessor's exit are
+    mapped (each live lane c >= 1, from each entry bit0 + o, o < MAP: the
+    exit and the membership mask of that walk), the fixpoint is replayed
+    on the maps (a lane's state is the start of its last walk; a state or
+    an entry the maps do not cover is walked), and each mapped lane is
+    walked again, recorded, from its state.  Returns (ent, ex, nst, ovf
+    of the mapped lanes - the caller keeps the rest -, mapped lanes,
+    images mapped, replay passes summed over them)."""
+    B, NC = ent.shape
+    M = min(_MEMB, posr.shape[1])
+    e_in = torch.cat([p0, ex[:, :-1]], dim=1)
+    marked = ((e_in != ent) & live).any(dim=1)
+    jl = marked[:, None] & live
+    jl[:, 0] = False
+    r = torch.where(nst > 0, posr[:, 0], ex)  # a walk of no step exits there
+    off = torch.arange(MAP, device=ent.device)[None, :, None]
+    starts = (bit0[:, None] + off).expand(B, MAP, NC).reshape(B, MAP * NC)
+    act = jl[:, None].expand(B, MAP, NC).reshape(B, MAP * NC)
+    xm, mm = _map_plain(words64, lut64, starts, bound.repeat(1, MAP),
+                        act & (starts < bound.repeat(1, MAP)),
+                        bit0.repeat(1, MAP), M)
+    xmap = (xm - starts).view(B, MAP, NC)  # the exit, from the entry
+    mmap = mm.view(B, MAP, NC)
+    x = ex.clone()
+    ent = ent.clone()
+    replays = 0
+    for _ in range(NC + 1):
+        e = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+        mv = jl & (e != ent)
+        if not bool(mv.any()):
+            break
+        replays += int(mv.any(dim=1).sum())
+        ro, eo = r - bit0, e - bit0
+        in_r = (ro >= 0) & (ro < MAP)
+        in_e = (eo >= 0) & (eo < MAP)
+        m = torch.gather(mmap, 1, ro.clamp(0, MAP - 1)[:, None])[:, 0] >> \
+            eo.clamp(0, MAP - 1)
+        m = torch.where(in_e, m, 0)
+        walked = mv & ~(in_r & (eo < MAP))  # not covered: walk the state
+        if bool(walked.any()):
+            m = torch.where(walked, _map_plain(
+                words64, lut64, r, bound, walked & (r < bound), e, M)[1], m)
+        new = mv & ((m & 1) == 0)  # a walk from e
+        xe = torch.gather(xmap, 1, eo.clamp(0, MAP - 1)[:, None])[:, 0] + e
+        far = new & ~in_e
+        if bool(far.any()):
+            xe = torch.where(far, _map_plain(words64, lut64, e, bound,
+                                             far & (e < bound), e, M)[0], xe)
+        x = torch.where(new, xe, x)
+        r = torch.where(new, e, r)
+        ent = torch.where(mv, e, ent)
+    ex2, nst2, ovf2 = _walk_plain(words64, lut64, r, bound, jl & (r < bound),
+                                  posr, raw0, raw1)
+    return ent, ex2, nst2, ovf2, jl, int(marked.sum()), replays
+
+
+def walk_ctl(dev):
+    """A walk's control words, zeroed: (6,) int32 on dev - the changed
+    flags [0, 3), then the passes, the images the jump mapped and their
+    replay passes (csrc/walk8.cu's).  The last walk's, B3's or B8's, card
+    or plain, stay in `walk_ctl.last`."""
+    walk_ctl.last = torch.zeros(6, dtype=torch.int32, device=dev)
+    return walk_ctl.last
+
+
+walk_ctl.last = None
+
+
 def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
                    seed=None):
     """The walk and fixpoint of kernels B3 and B8 in torch ops, with ST step
@@ -175,7 +283,11 @@ def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
     given, is resume_seed's: pass 0 walks each lane from its entry, or from
     p where the seed is ~p, and the seed is the walk's entry buffer (it is
     returned as e_fin).  Without it each lane starts at its chunk boundary,
-    lane 0 at p0."""
+    lane 0 at p0.  A walk still moving after pass JUMP is replayed on maps
+    (_jump_plain; with more than MAP rows, which hold the kernel's maps and
+    lists), which counts as one pass.  The passes, the images mapped and
+    their replay passes land in walk_ctl's control words, as the kernel's
+    do; the passes returned are their [3]."""
     B = words.shape[0]
     NC = n_chunks
     dev = words.device
@@ -197,7 +309,7 @@ def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
                                live & (start < bound), posr, raw0, raw1)
     if seed is not None:  # ~p: the entry is the second literal of row 0
         ent = torch.where(s < 0, start + ((raw0[:, 0] >> 19) & 15), s)
-    passes = 1
+    passes, jumps = 1, [0, 0]
     M = min(_MEMB, ST)
     rows = torch.arange(M, device=dev)[None, :, None]
     for _ in range(NC + 1):
@@ -218,10 +330,20 @@ def fixpoint_plain(words, lut, p0, zl8, *, n_chunks: int, ST: int,
         ex = torch.where(wm, ex2, ex)
         nst = torch.where(wm, nst2, nst)
         ovf = torch.where(wm, ovf2, ovf)
+        if passes == JUMP + 1 and ST > MAP:
+            ent, ex2, nst2, ovf2, jl, jumps[0], jumps[1] = _jump_plain(
+                words64, lut64, p0, bit0, live, bound, ent, ex, nst, posr,
+                raw0, raw1)
+            ex = torch.where(jl, ex2, ex)
+            nst = torch.where(jl, nst2, nst)
+            ovf = torch.where(jl, ovf2, ovf)
+            passes += 1
     i32, pdt = torch.int32, pos_dtype(NC)
     e_fin = ent.to(pdt) if seed is None else seed.copy_(ent)
+    ctl = walk_ctl(dev)
+    ctl[3:6] = torch.tensor([passes, *jumps], dtype=i32)
     return (e_fin, nst.to(i32), ovf, posr.to(pdt), raw0.to(i32),
-            raw1.to(i32), torch.tensor(passes, dtype=i32, device=dev))
+            raw1.to(i32), ctl[3])
 
 
 def walk_fix8_plain(words, lut, p0, zl8, *, n_chunks: int,
@@ -241,8 +363,15 @@ def walk_fix8(words, lut, p0, zl8, *, n_chunks: int, maxit: int = MAXIT):
     recorded and overflow flag (B, NC); step-major records (B, ST, NC)
     int32 - rows at or past a lane's nst are unspecified; and the number
     of walk passes as a 0-dim int32 tensor on the input's device (pass 0
-    plus every fixpoint pass, the last of which finds no change).  The bit
-    positions - p0, zl8, e_fin and posr - are of pos_dtype(n_chunks).
+    plus every fixpoint pass, the last of which finds no change; a jump
+    counts as one).  The bit positions - p0, zl8, e_fin and posr - are of
+    pos_dtype(n_chunks).  The walk's control words - the passes (the
+    tensor returned is their [3]), the images the jump mapped and their
+    replay passes - are left in walk_ctl.last.
+
+    A walk still moving after fixpoint pass JUMP is replayed on maps (the
+    jump, fixpoint_plain): the rest of the fixpoint, to the same outputs,
+    in one pass where it would crawl one lane a pass.
 
     A lane that overflows its rows walks on unrecorded (up to CAP steps),
     so its exit is exact: every image runs to the fixpoint of the PK=1
@@ -269,13 +398,16 @@ walk_fix8.passes = 0
 def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
               seed=None):
     """Run csrc/walk8.cu's walk and fixpoint with ST <= CAP step rows a
-    lane, in one cooperative launch (walk_fix8's contract), at the kernel's
-    32-bit or 64-bit positions (pos_dtype).  seed (B, NC) of positions,
+    lane, in one cooperative launch and, with more than MAP rows, the
+    jump's after it (walk_fix8's contract), at the kernel's 32-bit or
+    64-bit positions (pos_dtype).  seed (B, NC) of positions,
     contiguous, when given, is resume_seed's and the walk's entry
     buffer: the walk reads its seeds from it, writes its entries into it
     and returns it as e_fin, so a resumed walk holds no more than a fresh
-    one.  The launch's grid, blocks per SM and shared-memory LUT slots are
-    left in `walk_cuda.launch`."""
+    one.  The control words are walk_ctl's.  The walk's grid, blocks per
+    SM and shared-memory LUT slots are left in `walk_cuda.launch`, and
+    `walk_cuda.kernels` counts the kernels launched (the jump's
+    included)."""
     NC = n_chunks
     pdt = pos_dtype(NC)
     K.require_cuda(name, words, lut)
@@ -297,8 +429,8 @@ def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
     ex0, ex1 = (torch.empty((B, NC), dtype=pdt, device=dev)
                 for _ in range(2))
     ent = torch.empty_like(ex0) if seed is None else seed
-    ctl = torch.zeros(4, dtype=torch.int32, device=dev)  # flags, passes
-    info = (ctypes.c_int * 3)()
+    ctl = walk_ctl(dev)
+    info = (ctypes.c_int * 4)()
     K.check(K.lib().fpng_walk8(
         words.data_ptr(), nw, lut.data_ptr(), p0.data_ptr(), zl8.data_ptr(),
         B, NC, ST, int(seed is not None), int(pdt == torch.int64),
@@ -307,10 +439,12 @@ def walk_cuda(name: str, words, lut, p0, zl8, *, n_chunks: int, ST: int,
         raw0.data_ptr(), raw1.data_ptr(), ctl.data_ptr(),
         ctypes.addressof(info), K.stream_ptr(dev)), "fpng_walk8")
     walk_cuda.launch = dict(zip(("grid", "blocks_per_sm", "lut_slots"), info))
+    walk_cuda.kernels += info[3]
     return ent, nst, ovf != 0, posr, raw0, raw1, ctl[3]
 
 
 walk_cuda.launch = None
+walk_cuda.kernels = 0
 
 
 def resume_seed(posr, raw0, raw1, nst, e_fin):
@@ -582,22 +716,26 @@ def decode_kernel8(stream, lut, p0, zlib_len, *, h: int, w: int, c: int,
     step rows; when one overflowed, imgs and ok are None and seed is
     resume_seed of the converged entries - the PK=1 walk's fixpoint - for
     the caller to decode the batch on the PK=1 walk from; the records are
-    freed on return.  One device->host readback: steps, passes (added to
+    freed on return.  One device->host readback: steps, the walk's passes
+    and images mapped (walk_ctl's [3:5]; the passes added to
     walk_fix8.passes and, in a traced call, to the counters
-    decoder.walk8_passes and decoder.walk8_walks, utils/trace.py) and the
+    decoder.walk8_passes and decoder.walk8_jump_images, beside
+    decoder.walk8_walks and decoder.walk8_images, utils/trace.py) and the
     overflow flags; it is the host wait of the walk8 card clock.
     """
-    records, e_fin, out0, steps, ovf, passes = decode_walk8(
+    records, e_fin, out0, steps, ovf, _ = decode_walk8(
         stream, lut, p0, zlib_len, n_chunks=n_chunks(zlib_len_max),
         maxit=maxit)
-    diag = torch.cat([steps.view(1).to(torch.int32), passes.view(1),
+    diag = torch.cat([steps.view(1).to(torch.int32), walk_ctl.last[3:5],
                       ovf.to(torch.int32)])
     with trace.host_wait():
         diag = diag.cpu()
     walk_fix8.passes += int(diag[1])
     trace.count("decoder.walk8_walks")
+    trace.count("decoder.walk8_images", int(ovf.shape[0]))
     trace.count("decoder.walk8_passes", int(diag[1]))
-    if bool(diag[2:].any()):
+    trace.count("decoder.walk8_jump_images", int(diag[2]))
+    if bool(diag[3:].any()):
         return None, None, resume_seed(*records, e_fin)
     k8 = trim_steps(int(diag[0]), records[0].shape[1])
     return (*finish_decode(finalize_records8, records, e_fin, out0, zlib_len,

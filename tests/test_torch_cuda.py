@@ -896,3 +896,92 @@ def test_wide_encoder_counts_on_card(rng):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert T.encode_batch(imgs, 0, device="cuda") == want_files
+
+
+def _bank_batch(channels, tiles):
+    """Tiles `tiles` of the benchmark's first content call of `channels`
+    channels (pngbench/tiles.py:bank(channels, 256, 512), whose first tiles
+    do not depend on how many are drawn), as the port's 1-pass files, and
+    the walk's packed inputs of those with a dynamic block (the walk's
+    batch; stored-block files decode on the host)."""
+    from pngbench.tiles import bank
+    imgs = bank(channels, 256, max(tiles) + 1)[list(tiles)]
+    pngs = T.encode_batch(imgs, 0, device="cpu")
+    metas = [m for m in map(_parse_one, pngs) if m[7] is not None]
+    return imgs, pngs, [torch.from_numpy(a.astype(t)) for a, t in zip(
+        pack_streams(metas), (np.uint8, np.int32, np.int32, np.int32))]
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_jump_matches_plain_on_card(wide, monkeypatch):
+    """Two crawling RGBA tiles (gradients with alpha ramps, whose Jacobi
+    loop runs 24 and 44 passes; tests/test_torch_walk8.py): B3 and the
+    unseeded B8 on the card map both images after pass JUMP and replay
+    them, in two launches (the walk's and the jump's), to the plain
+    versions' outputs, passes, images mapped and replay passes, at 32-bit
+    and 64-bit positions; B8 seeded from B3 reads 2
+    passes, and the decode gives the tiles back."""
+    if wide:
+        monkeypatch.setattr(W, "POS32_BITS", 0)
+    imgs, pngs, (stream, luts, p0, zl) = _bank_batch(4, (4, 6))
+    nc = W.n_chunks(int(zl.max()))
+    pdt = W.pos_dtype(nc)
+    args = (W.stream_words(stream), luts, p0.to(pdt), zl.to(pdt) * 8)
+    cargs = [a.cuda() for a in args]
+    for walk in (W.walk_fix8, PK.walk_fix):
+        n0 = W.walk_cuda.kernels
+        got = walk(*cargs, n_chunks=nc)
+        ctl = W.walk_ctl.last.cpu()
+        assert W.walk_cuda.kernels == n0 + 2  # the walk's and the jump's
+        want = W.fixpoint_plain(*args, n_chunks=nc, ST=got[3].shape[1])
+        assert got[3].dtype == pdt
+        _walk_equal(got, want)
+        assert int(got[6]) == W.JUMP + 3 and int(ctl[4]) == 2
+        assert ctl[3:].tolist() == W.walk_ctl.last[3:].tolist()
+        if walk is W.walk_fix8:
+            b3 = got
+    seed = W.resume_seed(*b3[3:6], b3[1], b3[0])
+    resumed = PK.walk_fix(*cargs, n_chunks=nc, seed=seed)
+    assert int(resumed[6]) == 2
+    sts, outs = T.decode_batch(pngs, 4, device="cuda")
+    assert sts == [0, 0]
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+
+
+def test_rgba_content_call_decodes_on_card(monkeypatch):
+    """The RGBA benchmark's first content call (128 overlay tiles) on the
+    card: every tile back byte for byte, and the walk maps some of its
+    images (decoder.walk8_jump_images, counted in a traced call)."""
+    from fpng_tpu_torch.models import decoder as TD
+    from fpng_tpu_torch.utils import trace
+    from pngbench.tiles import bank
+    imgs = bank(4, 256, 128)
+    pngs = T.encode_batch(imgs, 0, device="cuda")
+    trace.reset()
+    monkeypatch.setattr(TD.decode_batch, "spans", {})
+    sts, outs = T.decode_batch(pngs, 4, device="cuda")
+    assert sts == [0] * 128
+    assert all(np.array_equal(o, i) for o, i in zip(outs, imgs))
+    cnt = trace.snapshot()["counters"]
+    assert cnt["decoder.walk8_images"] > cnt["decoder.walk8_jump_images"] > 0
+    assert cnt["decoder.walk8_passes"] == W.JUMP + 3
+    trace.reset()
+
+
+# walk_cuda.launch for the RGB benchmark's first content call (its 110
+# dynamic-block tiles, 2 714 lanes) on an H100 80GB HBM3, measured before
+# the jump was added to csrc/walk8.cu
+RGB_TILE_LAUNCH = {"grid": 528, "blocks_per_sm": 4, "lut_slots": 2}
+
+
+def test_walk_launch_keeps_its_occupancy():
+    """B3's launch at the RGB tile cell's shape - grid, blocks per SM,
+    shared-memory LUT slots - is what it was before the jump: the jump's
+    code costs the walk no occupancy."""
+    _, _, (stream, luts, p0, zl) = _bank_batch(3, range(128))
+    nc = W.n_chunks(int(zl.max()))
+    W.walk_fix8(W.stream_words(stream).cuda(), luts.cuda(), p0.cuda(),
+                (zl * 8).cuda(), n_chunks=nc)
+    torch.cuda.synchronize()
+    if torch.cuda.get_device_name().startswith("NVIDIA H100"):
+        assert W.walk_cuda.launch == RGB_TILE_LAUNCH

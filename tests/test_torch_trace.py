@@ -206,9 +206,10 @@ def test_registry_totals_self_and_counts_add_up(monkeypatch, fresh, pngs,
     assert 0 < counters.pop("decoder.walk8_card_s") <= \
         snap["spans"]["decoder.walk8"]["total_s"]
     walked = 4  # the dynamic-block files, planned on walk8 -> PK=1
-    assert counters == {  # one walk8 walk, no PK=1
-        "decoder.walk8_walks": 1,
+    assert counters == {  # one walk8 walk, no PK=1, no jump
+        "decoder.walk8_walks": 1, "decoder.walk8_images": walked,
         "decoder.walk8_passes": TW.walk_fix8.passes - passes8,
+        "decoder.walk8_jump_images": 0,
         "decoder.images": walked, "decoder.tier.walk8_pk1": walked}
     sp = _add_up(snap, DECODE_TREE, 1, {"transfer.stage": 4})
     dev = sp["decoder.device"]
@@ -332,7 +333,9 @@ SNAP = {"calls": {"decode_batch": 4, "encode_batch": 5},
                      "decoder.pk1_passes": 3844, "decoder.walk8_walks": 8,
                      "decoder.walk8_passes": 7688,
                      "decoder.walk8_card_s": 0.3, "decoder.images": 8,
-                     "decoder.chunked_images": 2}}
+                     "decoder.chunked_images": 2,
+                     "decoder.walk8_images": 8,
+                     "decoder.walk8_jump_images": 1}}
 
 
 @pytest.mark.parametrize("metric,op,want", [
@@ -349,7 +352,9 @@ SNAP = {"calls": {"decode_batch": 4, "encode_batch": 5},
     ("decoder.walk8_card_ms", "decode", 75.0),
     ("decoder.walk8_card_ms", "encode", None),
     ("decoder.chunked_share", "decode", 25.0),
-    ("decoder.chunked_share", "encode", None)])
+    ("decoder.chunked_share", "encode", None),
+    ("decoder.walk8_jump_share", "decode", 12.5),
+    ("decoder.walk8_jump_share", "encode", None)])
 def test_readers_of_the_registry(monkeypatch, metric, op, want):
     monkeypatch.setattr(trace, "snapshot", lambda: SNAP)
     got = _reader(metric)({"op": op})
@@ -361,7 +366,8 @@ def test_readers_of_the_registry(monkeypatch, metric, op, want):
                                     "decoder.pk1_passes",
                                     "decoder.walk8_passes",
                                     "decoder.walk8_card_ms",
-                                    "decoder.chunked_share"])
+                                    "decoder.chunked_share",
+                                    "decoder.walk8_jump_share"])
 def test_readers_find_nothing_without_calls_or_a_registry(monkeypatch,
                                                           metric):
     read = _reader(metric)

@@ -402,6 +402,179 @@ def test_resume_seed_walks_a_second_literal_entry_from_its_pair():
     assert bool(ok.all()) and np.array_equal(got[0].numpy(), img)
 
 
+@functools.lru_cache(maxsize=None)
+def _crawler(tile):
+    """Tile `tile` of the RGBA benchmark's first content call
+    (pngbench/tiles.py:bank(4, 256, 512), whose first tiles do not depend
+    on how many are drawn), a gradient with an alpha ramp, as the port's
+    1-pass file: the walk's inputs.  Walked from a wrong bit offset, a lane
+    of such a tile rarely rejoins the true walk within its chunk, so the
+    Jacobi loop crawls: a wrong exit moves one lane a pass."""
+    from pngbench import tiles
+    img = tiles.bank(4, 256, tile + 1)[tile]
+    return img, _pack(T.encode_batch(img[None], 0, device="cpu"))
+
+
+def _no_jump(monkeypatch, nc):
+    """The Jacobi loop as it ran before the jump: JUMP past every pass."""
+    monkeypatch.setattr(TW, "JUMP", nc + 2)
+
+
+def _walks_equal(out, ref):
+    """e_fin, nst, ovf and passes equal, and the records up to each
+    lane's nst."""
+    assert int(out[6]) == int(ref[6])
+    for a, b in zip(out[:3], ref[:3]):
+        assert torch.equal(a, b)
+    rows = torch.arange(out[3].shape[1])[None, :, None] < ref[1][:, None]
+    for a, b in zip(out[3:6], ref[3:6]):
+        assert torch.equal(torch.where(rows, a, 0),
+                           torch.where(rows, b.to(a.dtype), 0))
+
+
+@pytest.mark.parametrize("tile, crawl, ovf", [(4, 24, True), (6, 44, False)])
+def test_jump_replays_a_crawling_fixpoint(tile, crawl, ovf, monkeypatch):
+    """On a crawling tile the Jacobi loop runs `crawl` passes; after pass
+    JUMP the walk maps the still-moving image once and replays the rest of
+    the fixpoint on the maps, in JUMP + 3 passes, to every output of the
+    loop: B8 (536 rows, where no walk stops at its rows) against
+    _jacobi_reference, and B3 (96 rows) against the loop without the jump.
+    B3's entries and passes are B8's, and B8 seeded with them reads 2
+    passes.  The decode gives the tile back.  (fpng_tpu's walk8 runs its
+    fixpoint a group of lanes at a time, so on tile 6, which fits its rows,
+    19 of its entries enter a literal pair at its other literal, with the
+    jump and without it: the entries are compared with the port's loop
+    here, and with fpng_tpu's in test_crawling_tiles_decode_as_fpng_tpu.)"""
+    img, packed = _crawler(tile)
+    words, lut, p0, zl8, nc = _walk_args(packed)
+    b8 = TW.fixpoint_plain(words, lut, p0, zl8, n_chunks=nc, ST=TS.ST8)
+    ctl = TW.walk_ctl.last
+    ref = _jacobi_reference(words, lut, p0, zl8, n_chunks=nc, ST=TS.ST8)
+    assert ref[6] == crawl > TW.JUMP + 3 and int(b8[6]) == TW.JUMP + 3
+    assert ctl[4:].tolist() == [1, crawl - TW.JUMP - 2]
+    _walks_equal(b8[:6] + (torch.tensor(ref[6]),), ref)
+    out = _resumes_pk1(words, lut, p0, zl8, nc)
+    assert _image_ovf(out, zl8) == [ovf]
+    _no_jump(monkeypatch, nc)
+    loop = TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc)
+    assert int(loop[6]) == crawl
+    _walks_equal(out[:6] + (loop[6],), loop)
+    args = [torch.from_numpy(a) for a in packed]
+    kw = dict(h=256, w=256, c=4, zlib_len_max=int(packed[3].max()))
+    got, ok, seed = TW.decode_kernel8(*args, **kw)
+    if ovf:
+        got, ok = TS.decode_kernel_pk1(*args, **kw, seed=seed)
+    assert bool(ok.all()) and np.array_equal(got[0].numpy(), img)
+
+
+def _pair_split(packed, live, got, want):
+    """The live lanes whose entries (e_fin) differ between two chains
+    `got` and `want`, each checked to enter one literal pair, one chain at
+    its first literal and the other at its second (the LUT's pair entry at
+    the lower bit, whose first code is the gap), with the output offset
+    (out0) one byte higher at the higher bit.  Returns their count."""
+    nc = got["e_fin"].shape[1]
+    ge, we = got["e_fin"].astype(np.int64), want["e_fin"][:, :nc]
+    go, wo = got["out0"].astype(np.int64), want["out0"][:, :nc]
+    diff = live & (ge != we)
+    assert np.array_equal(np.where(live & ~diff, go, 0),
+                          np.where(live & ~diff, wo, 0))
+    b, _ = np.nonzero(diff)
+    lo, hi = np.minimum(ge, we)[diff], np.maximum(ge, we)[diff]
+    st = np.pad(packed[0], ((0, 0), (0, 4)))
+    win = (st[b, lo >> 3].astype(np.int64) |
+           st[b, (lo >> 3) + 1].astype(np.int64) << 8 |
+           st[b, (lo >> 3) + 2].astype(np.int64) << 16) >> (lo & 7) & 0xFFF
+    e = packed[1].view(np.int32)[b, win].astype(np.int64)
+    sym, clen, l2 = e & 511, (e >> 9) & 15, (e >> 25) & 15
+    assert ((sym < 256) & (l2 > 0) & (clen == hi - lo)).all()
+    assert np.array_equal(np.sign(go - wo)[diff], np.sign(ge - we)[diff])
+    assert (np.abs(go - wo)[diff] == 1).all()
+    return int(diff.sum())
+
+
+@pytest.mark.parametrize("tile, split", [(4, 6), (6, 19)])
+def test_crawling_tiles_decode_as_fpng_tpu(tile, split):
+    """The crawling tiles through fpng_tpu's decode chain: walk8 where the
+    tile fits its rows (tile 6), its PK=1 walk after walk8's overflow flag
+    (tile 4, flagged by both packages).  The port's decode gives the same
+    pixels and ok flags.  Its entries and output offsets equal fpng_tpu's
+    on every live lane but `split`: fpng_tpu's walks run their fixpoint a
+    group of lanes at a time, and on those lanes converge to the other
+    literal of the same literal pair (the port's Jacobi loop gives the
+    port's entries with the jump and without it); both decode the pair's
+    second literal once, so the pixels agree."""
+    from tests.test_torch_pk1 import _jax_chain as _jax_pk1_chain
+    from tests.test_torch_pk1 import _port_chain as _port_pk1_chain
+    img, packed = _crawler(tile)
+    kw = dict(h=256, w=256, c=4)
+    j, t = _jax_chain(*packed, **kw), _port_chain(*packed, **kw)
+    assert j["ovf"] == t["ovf"] == (tile == 4)
+    if t["ovf"]:
+        j, t = _jax_pk1_chain(*packed, **kw), _port_pk1_chain(*packed, **kw)
+    live = np.arange(t["nc"])[None, :] * 512 < packed[3][:, None] * 8
+    assert _pair_split(packed, live, t, j) == split
+    assert t["ok"].all() and np.array_equal(t["ok"], j["ok"])
+    assert np.array_equal(t["imgs"], j["imgs"])
+    assert np.array_equal(t["imgs"][0], img)
+
+
+def test_jump_walks_what_its_maps_do_not_cover(monkeypatch):
+    """Crawling tile 6, corrupted: its stream cut after 60 lanes (the
+    loop still crawls), a 12-bit code its true walk never reads made
+    invalid in its LUT, and that code written over the stream where the
+    true walk of lane 50 takes a step.  That lane stops there, and every
+    lane after it enters at that bit, far below its chunk, where its maps
+    do not reach (and walks from a wrong offset that read the code stop
+    too); the replay walks those states and entries, and every output is
+    the loop's."""
+    _, packed = _crawler(6)
+    words, lut, p0, _, _ = _walk_args(packed)
+    nc, c = 60, 50
+    zl8 = torch.tensor([nc * TW.S - 7], dtype=torch.int32)
+    base = TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc)
+    posr, nst, e_fin = base[3][0], base[1][0], base[0][0]
+    true = (posr >= e_fin) & (torch.arange(posr.shape[0])[:, None] < nst)
+    pos = posr[true].numpy().astype(np.int64)
+    st = np.concatenate([packed[0][0], np.zeros(8, np.uint8)])
+    b = pos >> 3
+    win = (st[b].astype(np.int64) | st[b + 1].astype(np.int64) << 8 |
+           st[b + 2].astype(np.int64) << 16) >> (pos & 7) & 0xFFF
+    v = min(set(range(4096)) - set(win.tolist()))
+    p = int(posr[3, c])
+    assert bool(true[3, c])
+    bits = np.unpackbits(st, bitorder="little")
+    bits[p:p + 12] = (v >> np.arange(12)) & 1
+    stream = np.packbits(bits, bitorder="little")[None, :packed[0].shape[1]]
+    words = TW.stream_words(torch.from_numpy(stream))
+    lut = lut.clone()
+    lut[0, v] = 0
+    out = TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc)
+    ctl = TW.walk_ctl.last
+    below = out[0][0, 1:] < torch.arange(1, nc) * TW.S
+    assert int(below.sum()) == nc - c - 1 and ctl[4] == 1
+    assert int(out[6]) == TW.JUMP + 3
+    _no_jump(monkeypatch, nc)
+    loop = TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc)
+    assert int(loop[6]) > int(out[6])
+    _walks_equal(out[:6] + (loop[6],), loop)
+
+
+def test_jump_needs_its_map_rows(monkeypatch):
+    """At maxit = 2 (16 rows) a lane's rows cannot hold its MAP maps: the
+    crawling walk runs the Jacobi loop to its end, maps no image, and
+    equals the loop."""
+    _, packed = _crawler(4)
+    words, lut, p0, zl8, nc = _walk_args(packed)
+    out = TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc, maxit=2)
+    ctl = TW.walk_ctl.last
+    assert 8 * 2 <= TW.MAP and ctl[4:].tolist() == [0, 0]
+    assert int(out[6]) == 24
+    _no_jump(monkeypatch, nc)
+    _walks_equal(out, TW.walk_fix8_plain(words, lut, p0, zl8, n_chunks=nc,
+                                         maxit=2))
+
+
 def _overflowing_rgba():
     """A 2-pass 4-channel tile that needs more than 96 steps in a chunk."""
     img = list(synthetic_corpus(4, size=32))[6]
